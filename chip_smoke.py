@@ -1,0 +1,306 @@
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py          # from the repository root
+
+Drives the port's main path -- the float32 fused Schur Gauss-Newton
+solve -- on the 1k-image / 100k-point self-calibrating fisheye block of
+bench.py, after building the CUDA kernels from ops/csrc and holding each
+against its plain PyTorch version at the block's shapes.  Imports nothing
+of JAX.  Phases:
+
+  1. environment   torch / CUDA / nvcc versions, card name and power limit
+  2. build         nvcc of ops/csrc/fusedmv.cu (seconds, ptxas report)
+  3. block         synth.make_block at the bench size, its band plan
+  4. kernels       K1 and K2 (three modes) against their plain versions on
+                   one linearization: relative norm error <= 1e-5 on every
+                   output the solver reads, bitwise repeatable, median
+                   times of kernel and plain version (CUDA events)
+  5. reference     a 12-image block solved on the card and on the CPU
+                   (plain versions): x within rtol=3e-5, atol=3e-4
+  6. main path     solve_schur(..., SchurOptions(dtype=float32,
+                   cg_maxiter=40), compute_covariance=False,
+                   device="cuda") for 5 GN iterations; launch counts
+
+Each phase prints its own lines; a failing check raises, so the script
+exits non-zero.  Without a CUDA card it exits non-zero before printing
+any result.  The last two lines are JSON: the kernel table, then
+{"ok": true, "device": {...}}.
+"""
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from fish_eye_bundle_adjustment_tpu_torch.ops import _build, fusedmv
+from fish_eye_bundle_adjustment_tpu_torch.solver import schur
+from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
+from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
+
+SELFCAL = dict(
+    estimate_c=True, estimate_xp=True, estimate_yp=True,
+    estimate_radial=True, estimate_decent=True,
+)
+KERNEL_TOL = 1e-5  # both f32; only the summation order differs
+X_TOL = dict(rtol=3e-5, atol=3e-4)
+SOURCE = "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu"
+REPLACES = {
+    "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:326",
+    "fused_schur_apply": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:129",
+}
+
+
+def _run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def phase_environment():
+    print(f"[1 env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        raise SystemExit("[1 env] FAIL: torch.cuda.is_available() is false")
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"])
+    print(f"[1 env] nvidia-smi: {card}")
+    print(f"[1 env] nvcc: {_run([_build._nvcc(), '--version']).splitlines()[-1]}")
+    print(f"[1 env] device 0: {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    return card
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.load()
+    secs = time.perf_counter() - t0
+    print(f"[2 build] {so.name} in {secs:.2f} s")
+    for line in (_build.last_build_log or "").splitlines():
+        if "registers" in line or "bytes stack" in line or "Compiling entry" in line:
+            print(f"[2 build] {line.strip()}")
+
+
+def phase_block():
+    t0 = time.perf_counter()
+    blk = make_block(
+        n_img=1000, n_pts=100_000, model="fisheye", seed=2, control_frac=0.01,
+        settings_overrides={"inner_constraints": False, **SELFCAL},
+    )
+    p = blk.problem
+    layout = ParamLayout(p)
+    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40)
+    plan = schur.make_band_plan(p, layout, opts)
+    if plan is None:
+        raise RuntimeError("[3 block] FAIL: no band plan")
+    print(f"[3 block] n_obs={p.n_obs} u={layout.u} G={plan.G} T={plan.T} "
+          f"W={plan.W} n_pad={plan.n_pad} n_img_pad={plan.n_img_pad} "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+    return p, layout, opts, plan
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median device time of fn() in ms, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _glue_reads(outs, plan, ne, ni, kind):
+    """The slices of each output the solver glue reads, lanes summed."""
+    nt, n_img = plan.n_tie, plan.n_img
+    if kind == "hpp":
+        hs, de, di = outs
+        read = {"hs": hs[:6, :nt], "de": de[:ne, :n_img]}
+        if ni:
+            read["di"] = di[:ni].sum(1)
+        return read
+    read = {"pose": outs[0][:ne, :n_img], "y": outs[2][:3, :nt]}
+    if ni:
+        read["iop"] = outs[1][:ni].sum(1)
+    if len(outs) == 5:
+        read["p21"] = outs[3][: ne * (ne + 1) // 2, :n_img]
+        if ni:
+            read["i55"] = outs[4][: ni * (ni + 1) // 2].sum(1)
+    return read
+
+
+def phase_kernels(p, layout, opts, plan, dev):
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)
+    x0 = torch.as_tensor(layout.initial().astype(np.float32), device=dev)
+    fac = kern.linearize(x0 * layout.scale_like(x0), obs,
+                         lam=torch.zeros((), device=dev))
+    band, ne, ni = obs.band, kern.ne, kern.ni
+    rng = np.random.default_rng(0)
+    rnd = lambda *s: torch.as_tensor(
+        rng.standard_normal(s).astype(np.float32), device=dev)
+    vpose, vi, a_rows = rnd(8, band.n_img_pad), rnd(128), rnd(8, band.n_pad)
+    streams = (fac.acam_t, fac.apt_t)
+    cases = {
+        "fused_hpp_pass": (
+            "hpp",
+            lambda: fusedmv.fused_hpp_pass(band, *streams, ne, ni),
+            lambda: fusedmv.fused_hpp_pass_ref(band, *streams, ne, ni),
+        ),
+    }
+    modes = {
+        "matvec": dict(vpose=vpose, vi=vi),
+        "rhs_precond": dict(a_rows=a_rows, with_precond=True),
+        "backsub": dict(vpose=vpose, vi=vi, a_rows=a_rows),
+    }
+    for mode, kw in modes.items():
+        cases[f"fused_schur_apply/{mode}"] = (
+            "schur",
+            lambda kw=kw: fusedmv.fused_schur_apply(
+                band, *streams, fac.hpi_t, ne, ni, **kw),
+            lambda kw=kw: fusedmv.fused_schur_apply_ref(
+                band, *streams, fac.hpi_t, ne, ni, **kw),
+        )
+    results = {}
+    for name, (kind, kernel, plain) in cases.items():
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"[4 kernels] FAIL: {name} is not bitwise repeatable")
+        g = _glue_reads(got, plan, ne, ni, kind)
+        w = _glue_reads(want, plan, ne, ni, kind)
+        errs = {}
+        max_abs = 0.0
+        for key in w:
+            d = (g[key].double() - w[key].double())
+            errs[key] = float(d.norm() / w[key].double().norm().clamp_min(1e-30))
+            max_abs = max(max_abs, float(d.abs().max()))
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        print(f"[4 kernels] {name}: rel err "
+              + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+              + f" max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.3f} ms"
+              f" plain {plain_ms:.3f} ms")
+        bad = {k: v for k, v in errs.items() if not v <= KERNEL_TOL}
+        if bad:
+            raise RuntimeError(f"[4 kernels] FAIL: {name} off its plain version: {bad}")
+        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def phase_reference(dev):
+    """A small block on the card (kernels) and on the CPU (plain versions)."""
+    blk = make_block(n_img=12, n_pts=150, model="fisheye", seed=13,
+                     control_frac=0.08,
+                     settings_overrides={"inner_constraints": False})
+    opts = schur.SchurOptions(dtype=np.float32)
+    on_card = schur.solve_schur(blk.problem, opts, compute_covariance=False,
+                                device=dev)
+    on_cpu = schur.solve_schur(blk.problem, opts, compute_covariance=False,
+                               device="cpu")
+    diff = np.abs(on_card.x - on_cpu.x)
+    viol = float(np.max(diff / (X_TOL["atol"] + X_TOL["rtol"] * np.abs(on_cpu.x))))
+    print(f"[5 reference] 12-image block: card {on_card.iterations} it "
+          f"sigma0^2={on_card.sigma02:.6f}, cpu {on_cpu.iterations} it "
+          f"sigma0^2={on_cpu.sigma02:.6f}, max |dx|={diff.max():.3e} "
+          f"(tolerance use {viol:.3f})")
+    np.testing.assert_allclose(on_card.x, on_cpu.x, **X_TOL)
+    if on_card.iterations != on_cpu.iterations:
+        raise RuntimeError("[5 reference] FAIL: iteration counts differ")
+
+
+def phase_main_path(p, layout, plan, dev):
+    problem = dataclasses.replace(
+        p, settings=dataclasses.replace(p.settings, iteration_cap=5))
+    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40)
+
+    def progress(rec):
+        print(f"[6 main] iter {rec.iteration}: L1(delta)={rec.delta_l1:.6g} "
+              f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
+              f"wall={rec.elapsed_s * 1e3:.1f} ms"
+              + ("" if rec.accepted else " REJECTED"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fusedmv.reset_counts()
+    t0 = time.perf_counter()
+    res = schur.solve_schur(problem, opts, compute_covariance=False,
+                            device=dev, progress_fn=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fusedmv.kernel_launches)
+    plain = dict(fusedmv.plain_calls)
+
+    cg = res.cg_iterations
+    print(f"[6 main] stopped_on={res.stopped_on} iterations={res.iterations} "
+          f"steps={len(cg)} cg per step={cg} sigma0^2={res.sigma02:.6f} "
+          f"rms={res.rms:.4f} wall={wall:.2f} s "
+          f"peak mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[6 main] launches: K1 fused_hpp_pass={counts['fused_hpp_pass']} "
+          f"K2 fused_schur_apply={counts['fused_schur_apply']}; "
+          f"plain versions called {plain}")
+    if not (np.isfinite(res.x).all() and np.isfinite(res.v).all()
+            and np.isfinite(res.sigma02) and np.isfinite(res.delta_history).all()):
+        raise RuntimeError("[6 main] FAIL: non-finite result")
+    if res.iterations != 5:
+        raise RuntimeError(f"[6 main] FAIL: {res.iterations} iterations, expected 5")
+    # weighted SSR, true residuals, before and after
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)
+
+    def cost(x):
+        x = torch.as_tensor(x.astype(np.float32), device=dev)
+        return float(kern.residual_cost(x * layout.scale_like(x), obs))
+
+    c0, c1 = cost(layout.initial()), cost(res.x)
+    print(f"[6 main] weighted SSR {c0:.6g} -> {c1:.6g}")
+    if not (np.isfinite(c1) and c1 < c0):
+        raise RuntimeError("[6 main] FAIL: the weighted SSR did not fall")
+    # one K1 pass per linearization (= GN step, rejected trials included);
+    # K2: rhs + preconditioner, one per CG iteration, back-substitution
+    want_k1, want_k2 = len(cg), 2 * len(cg) + sum(cg)
+    print(f"[6 main] expected K1 = steps = {want_k1}, "
+          f"K2 = 2 * steps + sum(cg) = {want_k2}")
+    if counts != {"fused_hpp_pass": want_k1, "fused_schur_apply": want_k2}:
+        raise RuntimeError(f"[6 main] FAIL: launch counts {counts}")
+    if any(plain.values()):
+        raise RuntimeError("[6 main] FAIL: a plain version ran on the main path")
+    return counts
+
+
+def main():
+    card = phase_environment()
+    dev = torch.device("cuda")
+    phase_build()
+    p, layout, opts, plan = phase_block()
+    timings = phase_kernels(p, layout, opts, plan, dev)
+    phase_reference(dev)
+    counts = phase_main_path(p, layout, plan, dev)
+    table = []
+    for name in ("fused_hpp_pass", "fused_schur_apply"):
+        # K2 is timed in its hot mode (one launch per CG iteration); the
+        # error is the largest over its three modes
+        t = timings[name if name in timings else f"{name}/matvec"]
+        errs = [v["max_abs_err"] for k, v in timings.items() if k.startswith(name)]
+        table.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            launches=counts[name], max_abs_err=max(errs), ms=t["ms"],
+            plain_ms=t["plain_ms"],
+        ))
+    print(card)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
