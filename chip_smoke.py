@@ -2,29 +2,49 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Drives the port's main path -- the float32 fused Schur Gauss-Newton
-solve -- on the 1k-image / 100k-point self-calibrating fisheye block of
-bench.py, after building the CUDA kernels from ops/csrc and holding each
-against its plain PyTorch version at the block's shapes.  Imports nothing
-of JAX.  Phases:
+Drives the port's two paths -- the float32 fused Schur Gauss-Newton
+solve and the float64 unfused one -- on the 1k-image / 100k-point
+self-calibrating fisheye block of bench.py, after building the CUDA
+kernels from ops/csrc and holding each against its plain PyTorch version
+at the block's shapes.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
-  2. build         nvcc of ops/csrc/fusedmv.cu (seconds, ptxas report)
+  2. build         nvcc of ops/csrc/fusedmv.cu and prefix.cu, one process
+                   each, started together (seconds, ptxas report)
   3. block         synth.make_block at the bench size, its band plan
   4. kernels       K1 and K2 (three modes) against their plain versions on
                    one linearization: relative norm error <= 1e-5 on every
                    output the solver reads, bitwise repeatable, median
-                   times of kernel and plain version (CUDA events)
+                   times of kernel and plain version (CUDA events), the
+                   bound of each kernel and mode
   5. reference     a 12-image block solved on the card and on the CPU
                    (plain versions): x within rtol=3e-5, atol=3e-4
   6. main path     solve_schur(..., SchurOptions(dtype=float32,
                    cg_maxiter=40), compute_covariance=False,
                    device="cuda") for 5 GN iterations; launch counts
+  7. segment       K4 (chunk_prefix) against its plain version at the
+                   block's stream length, D in {3, 6, 21}, float32 and
+                   float64: relative norm error <= 1e-5 / 1e-12, bitwise
+                   repeatable, median times of kernel, plain version and
+                   torch.cumsum, the byte bound; sorted_segment_sum on the
+                   card against the CPU at the block's tie and image axes
+  8. unfused ref   a 12-image float64 block and a 24-image 3-camera float32
+                   block solved unfused on the card and on the CPU
+  9. unfused main  solve_schur(problem, SchurOptions(cg_maxiter=40),
+                   compute_covariance=False, device="cuda") in float64 for
+                   3 GN iterations (depth cut from a converged solve);
+                   the K4 launch count against 6 * steps + 2 * sum(CG)
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
-any result.  The last two lines are JSON: the kernel table, then
-{"ok": true, "device": {...}}.
+any result.  The last three lines: the card's name and power limit, the
+kernel table as JSON, then {"ok": true, "device": {...}}.
+
+Bounds in the kernel table: the larger of the bytes of every input and
+output tensor of the call over 3.35 TB/s and the call's arithmetic over
+the peak rate of its type -- 67 TFLOP/s float32 (outside the tensor
+cores), 34 TFLOP/s float64 (H100 SXM data sheet) -- counted from the
+kernels' code per observation row.
 """
 
 import dataclasses
@@ -37,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from fish_eye_bundle_adjustment_tpu_torch.ops import _build, fusedmv
+from fish_eye_bundle_adjustment_tpu_torch.ops import _build, fusedmv, prefix, segment
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
@@ -47,12 +67,31 @@ SELFCAL = dict(
     estimate_radial=True, estimate_decent=True,
 )
 KERNEL_TOL = 1e-5  # both f32; only the summation order differs
+# K4 against its plain version: only the order of the additions differs
+PREFIX_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 X_TOL = dict(rtol=3e-5, atol=3e-4)
-SOURCE = "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu"
+X_TOL_F64 = dict(rtol=1e-9, atol=1e-7)  # tests/test_torch_schur_unfused.py
+SOURCES = {
+    "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu",
+    "fused_schur_apply": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu",
+    "chunk_prefix": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/prefix.cu",
+}
 REPLACES = {
     "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:326",
     "fused_schur_apply": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:129",
+    "chunk_prefix": "fish_eye_bundle_adjustment_tpu/ops/attic/prefix.py:34",
 }
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(tensors, flops, dtype):
+    """(bound_ms, bound_by): bytes of every input and output tensor once
+    over the memory rate, against the arithmetic over the peak rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _run(cmd):
@@ -155,6 +194,7 @@ def phase_kernels(p, layout, opts, plan, dev):
             "hpp",
             lambda: fusedmv.fused_hpp_pass(band, *streams, ne, ni),
             lambda: fusedmv.fused_hpp_pass_ref(band, *streams, ne, ni),
+            (),
         ),
     }
     modes = {
@@ -169,9 +209,27 @@ def phase_kernels(p, layout, opts, plan, dev):
                 band, *streams, fac.hpi_t, ne, ni, **kw),
             lambda kw=kw: fusedmv.fused_schur_apply_ref(
                 band, *streams, fac.hpi_t, ne, ni, **kw),
+            (fac.hpi_t, *(v for v in kw.values() if torch.is_tensor(v))),
         )
+    # arithmetic per owned row, from the kernels' code: K1 6 Hpp sym
+    # columns + ne pose and ni IOP squares (4 flops each); K2 matvec the
+    # expansion a (4(ne + ni)), t and b (12 each), the pose and IOP rows
+    # of C'b (4(ne + ni)), and 18 per tie for y = Hpp^-1 t.  The injected
+    # residual rows add 2; rhs + preconditioner has no expansion but per
+    # row the pose block's B (9 ne), C (15 ne) and 10 per symmetric pair,
+    # and 4 per IOP pair
+    rows, nt = p.n_obs, plan.n_tie
+    npair, ipair = ne * (ne + 1) // 2, ni * (ni + 1) // 2
+    flops = {
+        "fused_hpp_pass": rows * (24 + 4 * ne + 4 * ni),
+        "fused_schur_apply/matvec": rows * (24 + 8 * (ne + ni)) + 18 * nt,
+        "fused_schur_apply/rhs_precond": rows * (26 + 4 * (ne + ni) + 24 * ne
+                                                 + 10 * npair + 4 * ipair) + 18 * nt,
+        "fused_schur_apply/backsub": rows * (26 + 8 * (ne + ni)) + 18 * nt,
+    }
+    band_in = (band.rel, band.imgrow, band.sb, band.fr, band.er, band.ib)
     results = {}
-    for name, (kind, kernel, plain) in cases.items():
+    for name, (kind, kernel, plain, extra) in cases.items():
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -193,6 +251,10 @@ def phase_kernels(p, layout, opts, plan, dev):
         if bad:
             raise RuntimeError(f"[4 kernels] FAIL: {name} off its plain version: {bad}")
         results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        results[name]["bound_ms"], results[name]["bound_by"] = bound(
+            (*streams, *band_in, *extra, *got), flops[name], torch.float32)
+        print(f"[4 kernels] {name}: bound {results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']})")
     return results
 
 
@@ -231,6 +293,7 @@ def phase_main_path(p, layout, plan, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fusedmv.reset_counts()
+    prefix.reset_counts()
     t0 = time.perf_counter()
     res = schur.solve_schur(problem, opts, compute_covariance=False,
                             device=dev, progress_fn=progress)
@@ -238,6 +301,7 @@ def phase_main_path(p, layout, plan, dev):
     wall = time.perf_counter() - t0
     counts = dict(fusedmv.kernel_launches)
     plain = dict(fusedmv.plain_calls)
+    k4 = prefix.kernel_launches["chunk_prefix"] + prefix.plain_calls["chunk_prefix"]
 
     cg = res.cg_iterations
     print(f"[6 main] stopped_on={res.stopped_on} iterations={res.iterations} "
@@ -273,7 +337,149 @@ def phase_main_path(p, layout, plan, dev):
         raise RuntimeError(f"[6 main] FAIL: launch counts {counts}")
     if any(plain.values()):
         raise RuntimeError("[6 main] FAIL: a plain version ran on the main path")
+    if k4:
+        raise RuntimeError(f"[6 main] FAIL: the fused path ran the chunk prefix {k4} times")
     return counts
+
+
+def phase_segment(p, layout, dev):
+    """K4 at the block's stream length, then sorted_segment_sum on the
+    card against the CPU along the block's tie and image axes."""
+    n = -(-p.n_obs // prefix.CHUNK) * prefix.CHUNK
+    rng = np.random.default_rng(1)
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        for d in (3, 6, 21):
+            vals = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype, device=dev)
+            got, tot = prefix.chunk_prefix(vals)
+            again, _ = prefix.chunk_prefix(vals)
+            want, want_tot = prefix.chunk_prefix_ref(vals)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"[7 segment] FAIL: K4 {dtype} D={d} is not bitwise repeatable")
+            diff = (got - want).double()
+            rel = float(diff.norm() / want.double().norm())
+            rel_tot = float((tot - want_tot).double().norm() / want_tot.double().norm())
+            max_abs = float(diff.abs().max())
+            ms = cuda_ms(lambda: prefix.chunk_prefix(vals))
+            plain_ms = cuda_ms(lambda: prefix.chunk_prefix_ref(vals))
+            library_ms = cuda_ms(lambda: torch.cumsum(vals.view(-1, prefix.CHUNK, d), dim=1))
+            bound_ms, bound_by = bound((vals, got), vals.numel(), dtype)
+            name = f"{str(dtype).split('.')[-1]} D={d}"
+            print(f"[7 segment] K4 {name}: N={n} rel err {rel:.2e} (totals {rel_tot:.2e}) "
+                  f"max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms torch.cumsum {library_ms:.4f} ms "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            if not (rel <= PREFIX_TOL[dtype] and rel_tot <= PREFIX_TOL[dtype]):
+                raise RuntimeError(f"[7 segment] FAIL: K4 {name} off its plain version")
+            results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    order = schur.ObsData.sort_order_by_tie(p, layout)
+    tie = p.target_tie_slot[p.obs_pt]
+    tie = np.where(tie >= 0, tie, layout.n_tie)[order]
+    img = p.obs_img[order]
+    plans = {where: segment.DualAxisPlan.build(tie, layout.n_tie + 1, img, layout.n_img,
+                                               device=where)
+             for where in ("cpu", dev)}
+    for axis, d in (("primary", 3), ("secondary", 6)):
+        vals = torch.as_tensor(rng.standard_normal((p.n_obs, d)))
+        sums = {where: getattr(plan, f"{axis}_sum")(vals.to(where)).cpu()
+                for where, plan in plans.items()}
+        scale = getattr(plans["cpu"], f"{axis}_sum")(vals.abs())
+        rel = float((sums[dev] - sums["cpu"]).norm() / scale.norm())
+        print(f"[7 segment] sorted_segment_sum {axis} axis (D={d}, float64), card vs "
+              f"CPU: error / norm of the sums of |vals| = {rel:.2e}")
+        if not rel <= 1e-12:
+            raise RuntimeError(f"[7 segment] FAIL: the {axis} segment sum differs on the card")
+    return results
+
+
+def phase_unfused_reference(dev):
+    """Small unfused solves on the card (K4) and on the CPU (plain)."""
+    cases = {
+        "12-image float64": (
+            dict(n_img=12, n_pts=150, seed=13, control_frac=0.08,
+                 settings_overrides={"inner_constraints": False}),
+            schur.SchurOptions(explicit_s=False), X_TOL_F64),
+        "24-image 3-camera float32": (
+            dict(n_img=24, n_pts=300, n_cams=3, seed=41, control_frac=0.05,
+                 settings_overrides={"inner_constraints": False, "estimate_c": True,
+                                     "estimate_xp": True, "estimate_yp": True}),
+            schur.SchurOptions(dtype=np.float32, explicit_s=False), X_TOL),
+    }
+    for name, (kw, opts, tol) in cases.items():
+        blk = make_block(model="fisheye", **kw)
+        on_card = schur.solve_schur(blk.problem, opts, compute_covariance=False, device=dev)
+        on_cpu = schur.solve_schur(blk.problem, opts, compute_covariance=False, device="cpu")
+        diff = np.abs(on_card.x - on_cpu.x)
+        viol = float(np.max(diff / (tol["atol"] + tol["rtol"] * np.abs(on_cpu.x))))
+        print(f"[8 unfused ref] {name}: card {on_card.iterations} it "
+              f"({on_card.stopped_on}) sigma0^2={on_card.sigma02:.9f}, cpu "
+              f"{on_cpu.iterations} it sigma0^2={on_cpu.sigma02:.9f}, max |dx|="
+              f"{diff.max():.3e} (tolerance use {viol:.3f}); cg card "
+              f"{on_card.cg_iterations} cpu {on_cpu.cg_iterations}")
+        np.testing.assert_allclose(on_card.x, on_cpu.x, **tol)
+        if on_card.iterations != on_cpu.iterations:
+            raise RuntimeError(f"[8 unfused ref] FAIL: {name}: iteration counts differ")
+
+
+def phase_unfused_main_path(p, layout, dev):
+    problem = dataclasses.replace(
+        p, settings=dataclasses.replace(p.settings, iteration_cap=3))
+    opts = schur.SchurOptions(cg_maxiter=40)  # float64, explicit_s=None
+    if problem.n_img <= opts.explicit_s_max_images:
+        raise RuntimeError("[9 unfused] FAIL: the explicit-S gate would be on")
+
+    def progress(rec):
+        print(f"[9 unfused] iter {rec.iteration}: L1(delta)={rec.delta_l1:.9g} "
+              f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
+              f"wall={rec.elapsed_s * 1e3:.1f} ms"
+              + ("" if rec.accepted else " REJECTED"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fusedmv.reset_counts()
+    prefix.reset_counts()
+    t0 = time.perf_counter()
+    res = schur.solve_schur(problem, opts, compute_covariance=False,
+                            device=dev, progress_fn=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4 = prefix.kernel_launches["chunk_prefix"]
+    plain = prefix.plain_calls["chunk_prefix"]
+    fused = sum(fusedmv.kernel_launches.values()) + sum(fusedmv.plain_calls.values())
+
+    cg = res.cg_iterations
+    print(f"[9 unfused] float64 stopped_on={res.stopped_on} iterations={res.iterations} "
+          f"steps={len(cg)} cg per step={cg} sigma0^2={res.sigma02:.9f} "
+          f"rms={res.rms:.6f} wall={wall:.2f} s "
+          f"peak mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = 6 * len(cg) + 2 * sum(cg)
+    print(f"[9 unfused] launches: K4 chunk_prefix={k4}, expected 6 * steps + "
+          f"2 * sum(cg) = {want} (linearize 2, reduced rhs 2, pose preconditioner "
+          f"1, back-substitution 1, 2 per CG matvec); plain versions called "
+          f"{plain}; fused kernels {fused}")
+    if not (np.isfinite(res.x).all() and np.isfinite(res.v).all()
+            and np.isfinite(res.sigma02) and np.isfinite(res.delta_history).all()):
+        raise RuntimeError("[9 unfused] FAIL: non-finite result")
+    if res.iterations != 3:
+        raise RuntimeError(f"[9 unfused] FAIL: {res.iterations} iterations, expected 3")
+    if k4 != want or plain or fused:
+        raise RuntimeError(f"[9 unfused] FAIL: launch counts K4 {k4}, plain {plain}, "
+                           f"fused {fused}")
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, dtype=np.float64, device=dev)
+
+    def cost(x):
+        x = torch.as_tensor(x, device=dev)
+        return float(kern.residual_cost(x * layout.scale_like(x), obs))
+
+    c0, c1 = cost(layout.initial()), cost(res.x)
+    print(f"[9 unfused] weighted SSR {c0:.9g} -> {c1:.9g}")
+    if not (np.isfinite(c1) and c1 < c0):
+        raise RuntimeError("[9 unfused] FAIL: the weighted SSR did not fall")
+    return {"chunk_prefix": k4}
 
 
 def main():
@@ -284,16 +490,27 @@ def main():
     timings = phase_kernels(p, layout, opts, plan, dev)
     phase_reference(dev)
     counts = phase_main_path(p, layout, plan, dev)
+    seg = phase_segment(p, layout, dev)
+    phase_unfused_reference(dev)
+    counts.update(phase_unfused_main_path(p, layout, dev))
+    # K2 is timed in its hot mode (one launch per CG iteration), K4 at the
+    # width and type of the unfused path's CG image sum (float64, D = 6);
+    # each error is the largest over the kernel's modes or widths
+    timings["chunk_prefix"] = seg["float64 D=6"]
+    errs = {
+        "fused_hpp_pass": [timings["fused_hpp_pass"]["max_abs_err"]],
+        "fused_schur_apply": [v["max_abs_err"] for k, v in timings.items()
+                              if k.startswith("fused_schur_apply")],
+        "chunk_prefix": [v["max_abs_err"] for v in seg.values()],
+    }
     table = []
-    for name in ("fused_hpp_pass", "fused_schur_apply"):
-        # K2 is timed in its hot mode (one launch per CG iteration); the
-        # error is the largest over its three modes
+    for name in ("fused_hpp_pass", "fused_schur_apply", "chunk_prefix"):
         t = timings[name if name in timings else f"{name}/matvec"]
-        errs = [v["max_abs_err"] for k, v in timings.items() if k.startswith(name)]
         table.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=counts[name], max_abs_err=max(errs), ms=t["ms"],
-            plain_ms=t["plain_ms"],
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=counts[name], max_abs_err=max(errs[name]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t.get("library_ms"),
         ))
     print(card)
     print(json.dumps({"kernels": table}))

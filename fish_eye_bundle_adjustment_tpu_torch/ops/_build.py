@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (ops/csrc/*.cu).
 
-``nvcc`` compiles the sources into one shared library with a plain C
-interface, at first use, into ``ops/_build/`` (listed in .gitignore),
-keyed by a hash of the sources and flags; ``ctypes`` loads it.  The
-sources include no PyTorch header, so a build takes seconds.  The JAX
-package builds its C++ parser the same way (io/native.py).
+``nvcc`` compiles each source to an object, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, at first use, into ``ops/_build/`` (listed in
+.gitignore), keyed by a hash of the sources and flags; ``ctypes`` loads
+it.  The sources include no PyTorch header, so a build takes seconds.
+The JAX package builds its C++ parser the same way (io/native.py).
 
 Nothing here runs at import: ``load()`` builds on the first call.
 """
@@ -22,10 +23,8 @@ from typing import Optional
 
 _SRC_DIR = Path(__file__).parent / "csrc"
 _BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (the ptxas register / shared-memory report);
@@ -46,6 +45,10 @@ _SIGNATURES = {
     # n_img_pad ne ni with_v with_a with_precond p_rows i_rows | pose_part
     # iop_part out_y p21_part i55_part out_pose out_iop out_p21 out_i55 stream
     "fusedmv_schur_apply": ([_P] * 12 + [_I] * 13 + [_P] * 10, _I),
+    "prefix_abi_version": ([], _I),
+    # x out | n_chunks d | stream
+    "prefix_chunk_f32": ([_P, _P, _I, _I, _P], _I),
+    "prefix_chunk_f64": ([_P, _P, _I, _I, _P], _I),
 }
 
 
@@ -71,7 +74,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return _BUILD_DIR / f"fusedmv-{h.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -81,21 +84,42 @@ def build() -> Path:
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     # build under a temporary name, then rename: concurrent builds are safe
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    last_build_log = proc.stdout + proc.stderr
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = []
+        try:
+            for src, proc in zip(_sources(), procs):
+                out, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {src.name} ({proc.returncode}):\n{out}"
+                    )
+                logs.append(out)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+            capture_output=True, text=True, timeout=600,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}"
+            )
+        os.replace(lib, so)
+    last_build_log = "".join(logs) + link.stdout + link.stderr
     return so
 
 
@@ -108,8 +132,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = res
-        if lib.fusedmv_abi_version() != 1:
-            raise RuntimeError("fusedmv library ABI mismatch")
+        if lib.fusedmv_abi_version() != 1 or lib.prefix_abi_version() != 1:
+            raise RuntimeError("kernel library ABI mismatch")
         _lib = lib
     return _lib
 

@@ -1,6 +1,6 @@
-"""Schur-complement Gauss-Newton solver: the float32 fused path.
+"""Schur-complement Gauss-Newton solver on one device.
 
-PyTorch port of the single-device fused path of
+PyTorch port of the single-device paths of
 fish_eye_bundle_adjustment_tpu/solver/schur.py.  Per-observation Jacobian
 blocks feed a block-sparse normal system
 
@@ -12,18 +12,31 @@ and the reduced camera system
 
     S dc = gc - Hcp Hpp^-1 gp,   S = Hcc - Hcp Hpp^-1 Hpc
 
-is solved matrix-free with preconditioned conjugate gradients.  Every
-S-product, the reduced right-hand side with the Schur-Jacobi
-preconditioner blocks, and the back-substitution are one pass of the
-fused banded operator (ops/fusedmv.py): a CUDA kernel on the card, its
-plain PyTorch version on the CPU.  Free-network datum (Inner_Constraints):
-CG runs projected onto null(G^T).
+is solved matrix-free with preconditioned conjugate gradients.  Two
+paths compute the same operator:
 
-The slice covers ``solve_schur(problem, SchurOptions(dtype=np.float32),
-compute_covariance=False)`` on a single-camera block with tie points,
+- fused (float32, one camera, tie points, at most 8 IOP unknowns, a band
+  plan): every S-product, the reduced right-hand side with the
+  Schur-Jacobi preconditioner blocks, and the back-substitution are one
+  pass of the fused banded operator (ops/fusedmv.py);
+- unfused (float64, and every float32 block the fused path refuses): each
+  pass is gathers, per-observation block products and segment sums over
+  the observation stream (ops/segment.py, whose chunk prefix is the K4
+  kernel of ops/prefix.py) of the tie-sorted stream: by tie directly, by
+  image and camera through static permutations built once on the host;
+  nothing scatters, so no float atomics and runs repeat bit for bit.
+
+The kernels run on the card; CPU tensors take their plain PyTorch
+versions.  Free-network datum (Inner_Constraints): CG runs projected
+onto null(G^T).
+
+The slice covers ``solve_schur(problem, options, compute_covariance=False)``
 driven by the host Gauss-Newton loop with the deferred Levenberg-Marquardt
-control.  Every other configuration raises NotImplementedError naming the
-ROADMAP.md item that ports it; nothing falls back.
+control, for every configuration that would run matrix-free in the JAX
+package.  The explicit dense S (``explicit_s=True``, and the auto gate
+``explicit_s=None`` at n_img <= explicit_s_max_images on the unfused
+path), the device loop and covariance raise NotImplementedError naming
+the ROADMAP.md item that ports them; nothing falls back.
 """
 
 from __future__ import annotations
@@ -46,6 +59,11 @@ from fish_eye_bundle_adjustment_tpu_torch.ops.fusedmv import (
     fused_hpp_pass,
     fused_schur_apply,
 )
+from fish_eye_bundle_adjustment_tpu_torch.ops.segment import (
+    CHUNK,
+    DualAxisPlan,
+    SortPlan,
+)
 from fish_eye_bundle_adjustment_tpu_torch.solver.constraints import (
     build_G,
     validate_inner_constraints,
@@ -62,7 +80,6 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
 
 # What each configuration outside the slice waits for (ROADMAP.md Queue 1).
 _NOT_PORTED = {
-    "unfused": "the unfused Schur path with ops/segment.py (ROADMAP.md Queue 1, item 1)",
     "explicit": "solver/explicit.py, the explicit dense-S PairPlan (ROADMAP.md Queue 1, item 5)",
     "covariance": "solver/covariance.py (ROADMAP.md Queue 1, item 6)",
     "device_loop": "solver/device_loop.py (ROADMAP.md Queue 1, item 7)",
@@ -145,71 +162,137 @@ def _inv3x3(M):
 
 @dataclasses.dataclass
 class ObsData:
-    """Per-observation tensors in banded-stream order, on one device."""
+    """Per-observation tensors on one device, with the structure that
+    reduces them: a band plan's BandArrays (fused path) or the segment-sum
+    plans (unfused path)."""
 
     img: torch.Tensor  # (n,) int64 image index
+    cam: torch.Tensor  # (n,) int64 camera index
     pt: torch.Tensor  # (n,) int64 target index (into the full point table)
-    tie: torch.Tensor  # (n,) int64 tie RANK, == n_tie for control obs
+    tie: torch.Tensor  # (n,) int64 tie slot (RANK under a band plan), n_tie: control
     xy: torch.Tensor  # (n, 2) measured coordinates
     W: torch.Tensor  # (n, 2) weights (0 on padding rows)
     ydir_cam: torch.Tensor  # (n_cam,)
     iop_scale_cam: torch.Tensor  # (n_cam, 3+nk+2) distortion conditioning
-    band: BandArrays  # banded-stream structure for the fused kernels
+    # host observation order of the stream's first n_obs rows
+    order: np.ndarray
+    # tie-sorted stream (unfused): tie axis primary, image axis secondary
+    plan: Optional[DualAxisPlan] = None
+    # banded-stream structure for the fused kernels; `tie` then holds RANKs
+    band: Optional[BandArrays] = None
+    # per-camera sums of the unfused stream when n_cam > 1
+    by_cam: Optional[SortPlan] = None
 
     @staticmethod
-    def from_problem(problem: BAProblem, layout: ParamLayout, band_plan,
+    def from_problem(problem: BAProblem, layout: ParamLayout, band_plan=None,
                      dtype=np.float32, device="cpu") -> "ObsData":
-        """The stream sorted by tie RANK (tie ids relabeled to ranks) and
-        padded to the plan's n_pad, with the BandArrays attached."""
+        """With `band_plan`: the stream sorted by tie RANK (tie ids
+        relabeled to ranks) and padded to the plan's n_pad, with the
+        BandArrays attached.  Without one, the unfused path's stream: in
+        sort_order_by_tie order with a DualAxisPlan, padded once to a
+        multiple of the segment sums' CHUNK so no reduction pads again.
+        Padding rows have zero weight and the dummy tie slot; the unfused
+        ones repeat the last row's image, point and coordinates, so their
+        (ignored) residuals stay finite."""
         n = problem.n_obs
         tie = problem.target_tie_slot[problem.obs_pt]
-        tie = np.where(tie >= 0, tie, layout.n_tie)
-        live = tie < layout.n_tie
-        tie = np.where(
-            live,
-            band_plan.rank_of_slot[np.minimum(tie, layout.n_tie - 1)],
-            layout.n_tie,
-        )
-        order = band_plan.order
-        pad = band_plan.n_pad - n
+        # control obs, and every obs when the tie points are held fixed
+        # (layout.n_tie == 0), go to the dummy slot n_tie
+        tie = np.where((tie >= 0) & (tie < layout.n_tie), tie, layout.n_tie)
+        band = None
+        if band_plan is not None:
+            live = tie < layout.n_tie
+            tie = np.where(
+                live,
+                band_plan.rank_of_slot[np.minimum(tie, layout.n_tie - 1)],
+                layout.n_tie,
+            )
+            order = band_plan.order
+            pad = band_plan.n_pad - n
+            band = BandArrays.from_plan(band_plan, device)
+            mode = "constant"
+        else:
+            order = ObsData.sort_order_by_tie(problem, layout)
+            pad = -n % CHUNK
+            mode = "edge"
 
-        def _prep(a, fill=0):
+        def _host(a, fill=None):
             a = a[order]
             if pad:
                 width = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
-                a = np.pad(a, width, constant_values=fill)
-            return torch.as_tensor(a, device=device)
+                if fill is not None:
+                    a = np.pad(a, width, constant_values=fill)
+                else:
+                    a = np.pad(a, width, mode=mode)
+            return a
 
-        idx = lambda a, fill=0: _prep(np.asarray(a, np.int64), fill)
+        on_dev = lambda a: torch.as_tensor(a, device=device)
+        tie_h = _host(tie.astype(np.int64), fill=layout.n_tie)
+        img_h = _host(problem.obs_img.astype(np.int64))
+        cam_h = _host(problem.obs_cam.astype(np.int64))
+        plans = {}
+        if band is None:
+            plans["plan"] = DualAxisPlan.build(
+                tie_h, layout.n_tie + 1, img_h, layout.n_img, device
+            )
+            if problem.n_cam > 1:
+                plans["by_cam"] = SortPlan.build(cam_h, problem.n_cam, device)
         return ObsData(
-            img=idx(problem.obs_img),
-            pt=idx(problem.obs_pt),
-            tie=idx(tie, fill=layout.n_tie),
-            xy=_prep(problem.obs_xy.astype(dtype)),
+            img=on_dev(img_h),
+            cam=on_dev(cam_h),
+            pt=on_dev(_host(problem.obs_pt.astype(np.int64))),
+            tie=on_dev(tie_h),
+            xy=on_dev(_host(problem.obs_xy.astype(dtype))),
             # zero weight rows: padding contributes nothing
-            W=_prep(problem.obs_weights().astype(dtype)),
-            ydir_cam=torch.as_tensor(problem.y_dir.astype(dtype), device=device),
-            iop_scale_cam=torch.as_tensor(
-                layout.iop_scale_full.astype(dtype), device=device
-            ),
-            band=BandArrays.from_plan(band_plan, device),
+            W=on_dev(_host(problem.obs_weights().astype(dtype), fill=0)),
+            ydir_cam=on_dev(problem.y_dir.astype(dtype)),
+            iop_scale_cam=on_dev(layout.iop_scale_full.astype(dtype)),
+            order=order,
+            band=band,
+            **plans,
         )
+
+    @staticmethod
+    def sort_order_by_tie(problem: BAProblem, layout: ParamLayout) -> np.ndarray:
+        """Stable observation order sorted by tie slot (control obs last)."""
+        tie = problem.target_tie_slot[problem.obs_pt]
+        tie = np.where(tie >= 0, tie, layout.n_tie)
+        return np.argsort(tie, kind="stable")
+
+    # -- the unfused path's reductions (sorted segment sums) -------------
+    def tie_sum(self, vals):
+        """(n, D) -> (n_tie + 1, D) per-tie sums; the last row holds the
+        control observations (and the padding)."""
+        return self.plan.primary_sum(vals)
+
+    def img_sum(self, vals):
+        """(n, D) -> (n_img, D) per-image sums."""
+        return self.plan.secondary_sum(vals)
+
+    def cam_sum(self, vals):
+        """(n, D) -> (n_cam, D) per-camera sums."""
+        if self.by_cam is None:  # one camera
+            return vals.sum(dim=0, keepdim=True)
+        return self.by_cam.sum(vals)
 
 
 @dataclasses.dataclass
 class SchurOptions:
     """The JAX package's SchurOptions, same fields and defaults; see
     fish_eye_bundle_adjustment_tpu/solver/schur.py for the reasons behind
-    each.  The port covers dtype=float32 with the fused path; the options
-    of the paths not ported yet are kept so configurations carry over, and
-    selecting one raises NotImplementedError in solve_schur."""
+    each.  The options of the paths not ported yet (explicit S, the device
+    loop) are kept so configurations carry over, and selecting one raises
+    NotImplementedError in solve_schur."""
 
     cg_tol: float = 1e-10  # relative residual tolerance for the inner CG
     cg_maxiter: int = 500
     point_damping: float = 0.0  # optional LM damping on Hpp
     camera_damping: float = 0.0  # optional LM damping on the reduced system
     dtype: np.dtype = np.float64
-    obs_order: Optional[str] = "tie"  # None | "img" | "tie" observation sort
+    # None | "img" | "tie": picks the path as in the JAX package (the fused
+    # operator and the explicit-S auto gate need "tie"); the unfused stream
+    # is tie-sorted whatever it says
+    obs_order: Optional[str] = "tie"
     # explicit dense reduced camera system (solver/explicit.py, not ported)
     explicit_s: Optional[bool] = None
     explicit_s_max_images: int = 600
@@ -229,7 +312,7 @@ class SchurOptions:
     plateau_detection: bool = True
     # fused banded operator (ops/fusedmv.py); None -> on where it applies
     fused: Optional[bool] = None
-    # accepted for API parity; the kernels compute in f32 throughout
+    # accepted for API parity; the fused kernels compute in f32 throughout
     fused_precision: str = "bf16x2"
     fused_precision_mv: Optional[str] = None
     band_M: int = 128  # tie ranks per group
@@ -241,8 +324,7 @@ class SchurOptions:
 
 
 class SchurKernel:
-    """Static problem structure + the block-sparse linear algebra, for one
-    shared camera (the fused path's condition, see use_fused)."""
+    """Static problem structure + the block-sparse linear algebra."""
 
     def __init__(self, layout: ParamLayout, opts: SchurOptions):
         self.layout = layout
@@ -277,10 +359,9 @@ class SchurKernel:
         eop, iop, pts = layout.unpack_scaled(q)
         eop_o = eop[obs.img]
         xyz_o = pts[obs.pt]
-        # one camera: its IOPs and y_dir are shared by every row
+        iop_o, ydir_o = self._camera_rows(iop, obs)
         r, Je, Ji, Jp = batched_jacobian_blocks(
-            eop_o, iop[0], xyz_o, obs.xy, obs.ydir_cam[0],
-            self.model_id, self.nk,
+            eop_o, iop_o, xyz_o, obs.xy, ydir_o, self.model_id, self.nk,
         )
         if self.ne:
             cols = self._col_index("eop_cols", q.device)
@@ -288,7 +369,10 @@ class SchurKernel:
         else:
             Jex = Jey = Je[:, 0, :0]
         if self.ni:
-            Jis = Ji / obs.iop_scale_cam[0][None, None, :]
+            if self.n_cam == 1:
+                Jis = Ji / obs.iop_scale_cam[0][None, None, :]
+            else:
+                Jis = Ji / obs.iop_scale_cam[obs.cam][:, None, :]
             cols = self._col_index("iop_cols", q.device)
             Jix, Jiy = Jis[:, 0, cols], Jis[:, 1, cols]
         else:
@@ -298,13 +382,21 @@ class SchurKernel:
         Jpy = Jp[:, 1, :] * live
         return r[:, 0], r[:, 1], Jex, Jey, Jix, Jiy, Jpx, Jpy
 
+    def _camera_rows(self, iop, obs: ObsData):
+        """(IOPs, y_dir) for the Jacobian pass: one camera's, shared by
+        every row, or gathered per row for several cameras."""
+        if self.n_cam == 1:
+            return iop[0], obs.ydir_cam[0]
+        return iop[obs.cam], obs.ydir_cam[obs.cam]
+
     def residual_cost(self, q, obs: ObsData):
         """True weighted SSR at q -- residual rows only, no Jacobians: the
         LM merit function.  Padded rows (W == 0) are masked BEFORE the
         product so garbage residuals on padding can't poison the sum."""
         eop, iop, pts = self.layout.unpack_scaled(q)
+        iop_o, ydir_o = self._camera_rows(iop, obs)
         r = batched_residuals(
-            eop[obs.img], iop[0], pts[obs.pt], obs.xy, obs.ydir_cam[0],
+            eop[obs.img], iop_o, pts[obs.pt], obs.xy, ydir_o,
             self.model_id, self.nk,
         )
         w = obs.W
@@ -316,12 +408,40 @@ class SchurKernel:
         Marquardt scaling multiplies the Hpp diagonal by (1 + lam), so the
         damped Hpp^-1 flows through elimination, reduced rhs,
         back-substitution, and preconditioner consistently."""
-        if not self.use_fused(obs):
-            raise _not_ported("unfused", "this linearization is off the fused path")
         rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy = self.blocks(q, obs)
+        nt = self.n_tie
         wx, wy = obs.W[:, 0], obs.W[:, 1]
-        return self._linearize_fused(
-            obs, lam, rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy, wx, wy
+        if self.use_fused(obs):
+            return self._linearize_fused(
+                obs, lam, rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy, wx, wy
+            )
+        if obs.band is not None:
+            raise ValueError("a banded stream takes the fused path only")
+        # Hpp in symmetric 6-column form [00 01 02 11 12 22]
+        sym6 = torch.stack(
+            [wx * Jpx[:, a] * Jpx[:, b] + wy * Jpy[:, a] * Jpy[:, b]
+             for a in range(3) for b in range(a, 3)],
+            dim=1,
+        )  # (N, 6)
+        Hs = obs.tie_sum(sym6)[:nt]
+        Hpp_inv = self._damped_hpp_inv(Hs, lam) if nt else rx.new_zeros((0, 3, 3))
+        # row-flattened with a zero dummy row for per-observation gathers
+        Hpi_flat = torch.cat([Hpp_inv.reshape(nt, 9), Hpp_inv.new_zeros((1, 9))])
+        # adaptive LM: the UNDAMPED raw diag(Hcc) as a flat camera vector
+        # (not diag(S), which the Schur correction can drive toward zero in
+        # exactly the directions that need damping)
+        dcc = None
+        if lam is not None:
+            parts = []
+            if self.ne:
+                de = wx[:, None] * Jex**2 + wy[:, None] * Jey**2  # (N, ne)
+                parts.append(_clamp_diag(obs.img_sum(de)).reshape(-1))
+            if self.ni:
+                di = wx[:, None] * Jix**2 + wy[:, None] * Jiy**2
+                parts.append(_clamp_diag(obs.cam_sum(di)).reshape(-1))
+            dcc = torch.cat(parts) if parts else rx.new_zeros((0,))
+        return SchurFactors(
+            self, obs, rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy, Hpi_flat, dcc=dcc,
         )
 
     def _damped_hpp_inv(self, Hs, lam):
@@ -417,10 +537,11 @@ class SchurKernel:
 
 class SchurFactors:
     """One linearization point: residuals + blocks + eliminated points,
-    with the transposed folded streams of the fused operator."""
+    with the transposed folded streams of the fused operator when it is
+    on."""
 
     def __init__(self, kernel, obs, rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy,
-                 Hpi_flat, acam_t, apt_t, hpi_t, dcc=None):
+                 Hpi_flat, acam_t=None, apt_t=None, hpi_t=None, dcc=None):
         self.k = kernel
         self.obs = obs
         self.rx, self.ry = rx, ry
@@ -428,6 +549,7 @@ class SchurFactors:
         self.Jix, self.Jiy = Jix, Jiy
         self.Jpx, self.Jpy = Jpx, Jpy
         self.Hpi_flat = Hpi_flat  # (n_tie + 1, 9), zero dummy row
+        # transposed streams for the fused banded kernels (None when off)
         self.acam_t = acam_t
         self.apt_t = apt_t
         self.hpi_t = hpi_t
@@ -457,10 +579,32 @@ class SchurFactors:
             ax = ax + (self.Jex * vg).sum(dim=1)
             ay = ay + (self.Jey * vg).sum(dim=1)
         if k.ni:
-            vi = vi_cam[0]
-            ax = ax + self.Jix @ vi
-            ay = ay + self.Jiy @ vi
+            if k.n_cam == 1:
+                vi = vi_cam[0]
+                ax = ax + self.Jix @ vi
+                ay = ay + self.Jiy @ vi
+            else:
+                vg = vi_cam[self.obs.cam]
+                ax = ax + (self.Jix * vg).sum(dim=1)
+                ay = ay + (self.Jiy * vg).sum(dim=1)
         return ax, ay
+
+    def _cam_applyT(self, bx, by):
+        """C^T b reduced into the camera vector."""
+        k = self.k
+        parts = []
+        if k.ne:
+            g = self.Jex * bx[:, None] + self.Jey * by[:, None]  # (N, ne)
+            parts.append(self.obs.img_sum(g).reshape(-1))
+        if k.ni:
+            g = self.Jix * bx[:, None] + self.Jiy * by[:, None]
+            parts.append(self.obs.cam_sum(g).reshape(-1))
+        return torch.cat(parts) if parts else self.rx.new_zeros((0,))
+
+    def _point_applyT(self, bx, by):
+        """P^T b -> (n_tie, 3) (dummy control slot dropped)."""
+        tp = self.Jpx * bx[:, None] + self.Jpy * by[:, None]  # (N, 3)
+        return self.obs.tie_sum(tp)[: self.k.n_tie]
 
     def _point_apply(self, vp):
         """(px, py) = P vp per observation; control obs contribute zero."""
@@ -475,6 +619,10 @@ class SchurFactors:
         return torch.einsum("tpq,tq->tp", H, t)
 
     # -- fused banded operator plumbing (ops/fusedmv.py) -----------------
+    @property
+    def fused(self):
+        return self.acam_t is not None
+
     def _fused_v(self, vc):
         """Camera vector -> ((8, n_img_pad) rank-ordered pose planes,
         (128,) IOP scalars)."""
@@ -524,37 +672,151 @@ class SchurFactors:
     def schur_matvec(self, vc):
         """S vc = C'WC vc - C'WP Hpp^-1 P'WC vc."""
         k = self.k
-        vpose, vi = self._fused_v(vc)
-        out_pose, out_iop, _ = self._fused_apply(
-            vpose=vpose, vi=vi, precision=k.mv_precision
-        )
-        out = self._fused_cam_out(out_pose, out_iop)
+        if self.fused:
+            vpose, vi = self._fused_v(vc)
+            out_pose, out_iop, _ = self._fused_apply(
+                vpose=vpose, vi=vi, precision=k.mv_precision
+            )
+            out = self._fused_cam_out(out_pose, out_iop)
+        else:
+            wx, wy = self._w
+            ax, ay = self._cam_apply(vc)
+            awx, awy = wx * ax, wy * ay
+            if k.n_tie:
+                y = self._hpp_inv_apply(self._point_applyT(awx, awy))
+                # fold the correction into one image-axis reduction:
+                # C'(aw) - C'(W P y) = C'(aw - W P y)
+                px, py = self._point_apply(y)
+                awx = awx - wx * px
+                awy = awy - wy * py
+            out = self._cam_applyT(awx, awy)
         if k.opts.camera_damping:
             out = out + k.opts.camera_damping * vc
         return out
 
     def reduced_rhs(self):
         """gc_tilde = -(C'W r - C'WP Hpp^-1 P'W r)."""
-        out_pose, out_iop, _ = self._fused_apply(a_rows=self._fused_arows())
-        return -self._fused_cam_out(out_pose, out_iop)
+        if self.fused:
+            out_pose, out_iop, _ = self._fused_apply(a_rows=self._fused_arows())
+            return -self._fused_cam_out(out_pose, out_iop)
+        wx, wy = self._w
+        rwx, rwy = wx * self.rx, wy * self.ry
+        if self.k.n_tie:
+            y = self._hpp_inv_apply(self._point_applyT(rwx, rwy))
+            px, py = self._point_apply(y)
+            rwx = rwx - wx * px
+            rwy = rwy - wy * py
+        return -self._cam_applyT(rwx, rwy)
 
     def back_substitute(self, dc):
-        """dp = Hpp^-1 (-P'W r - P'W C dc)  -> (n_tie, 3), in tie RANK
-        order -- convert with tie_to_layout_order before packing."""
+        """dp = Hpp^-1 (-P'W r - P'W C dc)  -> (n_tie, 3), in the solver's
+        internal tie id space (tie RANK order under the band plan, layout
+        slot order otherwise) -- convert with tie_to_layout_order before
+        packing."""
         k = self.k
         if not k.n_tie:
             return self.rx.new_zeros((0, 3))
-        vpose, vi = self._fused_v(dc)
-        _, _, y = self._fused_apply(vpose=vpose, vi=vi, a_rows=self._fused_arows())
-        return -y[:3, : k.n_tie].T.to(self.rx.dtype)
+        if self.fused:
+            vpose, vi = self._fused_v(dc)
+            _, _, y = self._fused_apply(
+                vpose=vpose, vi=vi, a_rows=self._fused_arows()
+            )
+            return -y[:3, : k.n_tie].T.to(self.rx.dtype)
+        wx, wy = self._w
+        ax, ay = self._cam_apply(dc)
+        rhs = -self._point_applyT(wx * (self.rx + ax), wy * (self.ry + ay))
+        return self._hpp_inv_apply(rhs)
 
     def tie_to_layout_order(self, vp):
         """Internal (rank-space) per-tie rows -> layout slot order."""
+        if self.obs.band is None:
+            return vp
         return vp[self.obs.band.rank_of_slot]
 
     def tie_from_layout_order(self, vp):
         """Layout slot order -> the solver's internal tie id space."""
+        if self.obs.band is None:
+            return vp
         return vp[self.obs.band.slot_of_rank]
+
+    # -- Schur-Jacobi preconditioner, unfused ------------------------------
+    def pose_precond_sym(self):
+        """Per-observation symmetric columns (N, ne(ne+1)/2) of the
+        pose-diagonal Schur blocks (Hcc diag minus the Hpp^-1 correction),
+        un-reduced.  Each (image, point) pair is observed once, so the
+        diagonal Schur correction Sum_o Je_o' W Jp_o Hpp^-1 Jp_o' W Je_o is
+        one segment sum over observations."""
+        k = self.k
+        ne = k.ne
+        wx, wy = self._w
+        pairs = [(e, f) for e in range(ne) for f in range(e, ne)]
+        cols = [
+            wx * self.Jex[:, e] * self.Jex[:, f]
+            + wy * self.Jey[:, e] * self.Jey[:, f]
+            for e, f in pairs
+        ]
+        if k.n_tie:
+            Hg = self.Hpi_flat[self.obs.tie]  # (N, 9) row gather
+            # B[e][p] = (Je' W Jp)[e, p] per observation
+            B = [
+                [
+                    wx * self.Jex[:, e] * self.Jpx[:, p]
+                    + wy * self.Jey[:, e] * self.Jpy[:, p]
+                    for p in range(3)
+                ]
+                for e in range(ne)
+            ]
+            # C[e][q] = sum_p B[e][p] H[p, q]
+            C = [
+                [sum(B[e][p] * Hg[:, 3 * p + q] for p in range(3)) for q in range(3)]
+                for e in range(ne)
+            ]
+            for idx, (e, f) in enumerate(pairs):
+                cols[idx] = cols[idx] - sum(C[e][q] * B[f][q] for q in range(3))
+        return torch.stack(cols, dim=1)
+
+    def iop_precond_sym(self):
+        """Per-observation symmetric columns (N, ni(ni+1)/2) of the IOP
+        diagonal blocks, un-reduced."""
+        ni = self.k.ni
+        wx, wy = self._w
+        return torch.stack(
+            [
+                wx * self.Jix[:, e] * self.Jix[:, f]
+                + wy * self.Jiy[:, e] * self.Jiy[:, f]
+                for e in range(ni) for f in range(e, ni)
+            ],
+            dim=1,
+        )
+
+    def _sym_blocks(self, sym, nb):
+        """(b, nb(nb+1)/2) symmetric columns -> (b, nb, nb) blocks, plus
+        the fixed camera_damping on the diagonal."""
+        out = _expand_sym(sym, nb)
+        if self.k.opts.camera_damping:
+            out = out + self.k.opts.camera_damping * torch.eye(
+                nb, dtype=out.dtype, device=out.device
+            )
+        return out
+
+    def pose_precond_blocks(self):
+        """Exact Schur-Jacobi diagonal: per-image (ne, ne) blocks of S."""
+        return self._sym_blocks(self.obs.img_sum(self.pose_precond_sym()), self.k.ne)
+
+    def iop_precond_blocks(self):
+        """Per-camera (ni, ni) IOP diagonal blocks."""
+        return self._sym_blocks(self.obs.cam_sum(self.iop_precond_sym()), self.k.ni)
+
+    def make_preconditioner(self, lam=None):
+        """(preconditioner, raw diag(Hcc) or None); lam damps the blocks
+        (see _precond_from_blocks)."""
+        k = self.k
+        blocks = []
+        if k.ne:
+            blocks.append(("pose", self.pose_precond_blocks()))
+        if k.ni:
+            blocks.append(("iop", self.iop_precond_blocks()))
+        return self._precond_from_blocks(blocks, lam), self.dcc
 
     def _precond_apply_from(self, Ms):
         def apply(vc):
@@ -588,31 +850,28 @@ class SchurFactors:
         return self._precond_apply_from(Ms)
 
     def rhs_and_precond(self, lam=None):
-        """(reduced_rhs, preconditioner, raw diag(Hcc) or None) from one
-        fused pass."""
+        """(reduced_rhs, preconditioner, raw diag(Hcc) or None): one fused
+        pass when the banded operator is on, the separate unfused passes
+        otherwise."""
         k = self.k
+        if not self.fused:
+            rhs = self.reduced_rhs()
+            precond, dvec = self.make_preconditioner(lam)
+            return rhs, precond, dvec
         band = self.obs.band
         out_pose, out_iop, _, p21, i55 = self._fused_apply(
             a_rows=self._fused_arows(), with_precond=True
         )
         rhs = -self._fused_cam_out(out_pose, out_iop)
         dtype = self.rx.dtype
-        damp = k.opts.camera_damping
-        blocks = []
         npair = k.ne * (k.ne + 1) // 2
         sym = p21[:npair, : k.n_img].T  # (n_img, npair) rank order
         sym = sym[band.imgrank_of_img].to(dtype)
-        Pb = _expand_sym(sym, k.ne)
-        if damp:
-            Pb = Pb + damp * torch.eye(k.ne, dtype=dtype, device=Pb.device)
-        blocks.append(("pose", Pb))
+        blocks = [("pose", self._sym_blocks(sym, k.ne))]
         if k.ni:
             ipair = k.ni * (k.ni + 1) // 2
             symi = i55[:ipair].sum(dim=1).reshape(1, ipair).to(dtype)
-            Ib = _expand_sym(symi, k.ni)
-            if damp:
-                Ib = Ib + damp * torch.eye(k.ni, dtype=dtype, device=Ib.device)
-            blocks.append(("iop", Ib))
+            blocks.append(("iop", self._sym_blocks(symi, k.ni)))
         return rhs, self._precond_from_blocks(blocks, lam), self.dcc
 
 
@@ -678,7 +937,8 @@ def make_projection_builder(layout, nc, use_ic: bool):
 def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
                   pairs=None):
     """One (damped) Gauss-Newton step as a function of (x, obs, cg_tol,
-    lam) on the matrix-free fused path.  `cg_tol` and `lam` are Python
+    lam) on the matrix-free path (fused or unfused, as the
+    linearization picks).  `cg_tol` and `lam` are Python
     floats or 0-d tensors (lam = 0 is a pure GN step).
 
     Returns (x_trial, L1(delta), v_local, stats, cg_iters) with stats =
@@ -900,11 +1160,9 @@ def unpermute_v(v_local, order, n_obs):
     """Undo the solver's observation sort (and drop padding) so residual
     rows line up with the input .pho order."""
     v_sorted = v_local.cpu().numpy()[:n_obs]
-    if order is not None:
-        v_unsorted = np.empty_like(v_sorted)
-        v_unsorted[order] = v_sorted
-        v_sorted = v_unsorted
-    return v_sorted.reshape(-1)
+    v_unsorted = np.empty_like(v_sorted)
+    v_unsorted[order] = v_sorted
+    return v_unsorted.reshape(-1)
 
 
 def _finalize(problem, layout, x, history, delta_history, v_np, stats, count,
@@ -946,11 +1204,11 @@ def _finalize(problem, layout, x, history, delta_history, v_np, stats, count,
 
 def make_band_plan(problem, layout, opts: SchurOptions):
     """Host-side banded plan for the fused operator when it applies
-    (ops/bandplan.py); None otherwise.  Unlike the JAX package this needs
-    no particular backend (the plain versions run the plan on the CPU),
-    and it refuses more than 8 IOP unknowns, which the operator's 8-row
-    IOP outputs cannot hold (the JAX gate lets them through; ROADMAP.md
-    Queue 3)."""
+    (ops/bandplan.py); None -> the unfused path.  Unlike the JAX package
+    this needs no particular backend (the plain versions run the plan on
+    the CPU), and it refuses more than 8 IOP unknowns, which the
+    operator's 8-row IOP outputs cannot hold (the JAX gate lets them
+    through and fails; ROADMAP.md Queue 3): such blocks run unfused."""
     if opts.fused is False or opts.obs_order != "tie":
         return None
     if not (
@@ -969,6 +1227,18 @@ def make_band_plan(problem, layout, opts: SchurOptions):
         tie, problem.obs_img, layout.n_tie, problem.n_img,
         M=opts.band_M, max_W=opts.band_max_W,
     )
+
+
+def uses_explicit_s(problem, layout, opts: SchurOptions) -> bool:
+    """Whether the JAX package would build the explicit dense S for an
+    unfused solve (its make_pair_plan gate): explicit_s=True, or the auto
+    gate explicit_s=None at n_img <= explicit_s_max_images with
+    obs_order="tie" -- with poses and tie points to pair."""
+    explicit = opts.explicit_s
+    if explicit is None:
+        explicit = (problem.n_img <= opts.explicit_s_max_images
+                    and opts.obs_order == "tie")
+    return bool(explicit) and layout.n_eop > 0 and layout.n_tie > 0
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -993,15 +1263,17 @@ def solve_schur(
     compute_covariance: bool = True,
     device=None,
 ) -> DenseResult:
-    """Outer Gauss-Newton loop with the fused Schur/PCG inner solve on one
-    device (`device`, default "cuda").
+    """Outer Gauss-Newton loop with the matrix-free Schur/PCG inner solve
+    on one device (`device`, default "cuda").
 
     Matches the reference's convergence conventions (L1 of the de-scaled
-    correction vs Threshold_Value, Iteration_Cap).  The slice runs
-    float32 with the fused banded operator on a single-camera block with
-    tie points; parameter stds (compute_covariance=True), the f64 and
-    unfused paths, the explicit dense S and the device loop raise
-    NotImplementedError.
+    correction vs Threshold_Value, Iteration_Cap).  Dispatches in the JAX
+    package's order: a band plan means the fused path; otherwise the
+    unfused path, unless the JAX package would build the explicit dense S
+    there.  Parameter stds (compute_covariance=True), the explicit dense S
+    (explicit_s=True, or its auto gate at n_img <= explicit_s_max_images:
+    pass explicit_s=False for the matrix-free solve) and the device loop
+    raise NotImplementedError.
     """
     opts = options or SchurOptions()
     if compute_covariance:
@@ -1019,12 +1291,13 @@ def solve_schur(
 
     kernel = SchurKernel(layout, opts)
     band_plan = make_band_plan(problem, layout, opts)
-    if band_plan is None:
+    if band_plan is None and uses_explicit_s(problem, layout, opts):
         raise _not_ported(
-            "unfused",
-            "the fused path needs dtype=float32, fused != False, obs_order='tie', "
-            "one camera, tie points, estimated poses, at most 8 IOP unknowns "
-            "and a band plan within its caps",
+            "explicit",
+            f"explicit_s=None picks the dense reduced camera system at "
+            f"{problem.n_img} <= explicit_s_max_images="
+            f"{opts.explicit_s_max_images} images (pass explicit_s=False "
+            "for the matrix-free solve)",
         )
     obs = ObsData.from_problem(
         problem, layout, band_plan, dtype=opts.dtype, device=dev
@@ -1044,7 +1317,7 @@ def solve_schur(
         checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, device=dev,
     )
-    v_np = unpermute_v(v_local, band_plan.order, problem.n_obs)
+    v_np = unpermute_v(v_local, obs.order, problem.n_obs)
     result = _finalize(
         problem, layout, x, history, delta_history, v_np,
         stats.double().cpu().numpy(), count, converged, elapsed,

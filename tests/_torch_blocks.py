@@ -22,6 +22,10 @@ BLOCKS = {
                       settings_overrides={"inner_constraints": False,
                                           "estimate_w": False, "estimate_p": False,
                                           "estimate_c": True, "estimate_xp": True}),
+    # three cameras round-robin over the images, each self-calibrating:
+    # per-camera IOP gathers and camera-axis segment sums
+    "cam3_12": dict(n_img=12, n_pts=150, n_cams=3, seed=41, control_frac=0.08,
+                    settings_overrides={"inner_constraints": False, **SELFCAL}),
 }
 
 

@@ -123,23 +123,34 @@ NINE_IOPS = dict(estimate_c=True, estimate_xp=True, estimate_yp=True,
                  estimate_decent=True)
 
 
-@pytest.mark.parametrize("opts, kw, settings", [
-    (dict(dtype=np.float64), {}, {}),
-    (dict(dtype=np.float32, fused=False), {}, {}),
-    (dict(dtype=np.float32, device_loop=True), {}, {}),
-    (dict(dtype=np.float32, explicit_s=True), {}, {}),
-    (dict(dtype=np.float32), dict(compute_covariance=True), {}),
-    (dict(dtype=np.float32), {}, NINE_IOPS),
+@pytest.mark.parametrize("opts, kw, settings, item", [
+    (dict(dtype=np.float64), {}, {}, "item 5"),
+    (dict(dtype=np.float32, fused=False), {}, {}, "item 5"),
+    (dict(dtype=np.float32, device_loop=True), {}, {}, "item 7"),
+    (dict(dtype=np.float32, explicit_s=True), {}, {}, "item 5"),
+    (dict(dtype=np.float32), dict(compute_covariance=True), {}, "item 6"),
+    (dict(dtype=np.float32), {}, NINE_IOPS, "item 5"),
 ], ids=["f64", "unfused", "device_loop", "explicit_s", "covariance", "nine_iops"])
-def test_outside_the_slice_raises(opts, kw, settings):
-    """Configurations the port does not cover yet raise, naming the
-    ROADMAP item; nothing falls back to another path.  (Nine IOP unknowns
-    overflow the fused operator's 8 IOP rows; the JAX fused path fails on
-    them at trace time.)"""
+def test_outside_the_slice_raises(opts, kw, settings, item):
+    """Configurations the port does not cover yet raise, naming their
+    ROADMAP Queue 1 item; nothing falls back to another path.  The f64,
+    unfused and nine-IOP routes (nine IOP unknowns overflow the fused
+    operator's 8 IOP rows) lead into the unfused path, where explicit_s=None
+    at 12 <= explicit_s_max_images images picks the explicit dense S, as in
+    the JAX package: item 5."""
     p = to_port(jax_block("eop12", **settings))
     kw = {"compute_covariance": False, "device": "cpu", **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         tschur.solve_schur(p, tschur.SchurOptions(**opts), **kw)
+
+
+def test_sharded_segment_plans_raise():
+    """Per-shard segment plans wait for parallel/ (ROADMAP Queue 1, item 8)."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops.segment import DualAxisPlan
+
+    ids = np.arange(8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
+        DualAxisPlan.build_sharded(ids, 8, ids, 8, 2)
 
 
 def test_default_device_needs_cuda():
