@@ -6,11 +6,16 @@ Drives the port's two paths -- the float32 fused Schur Gauss-Newton
 solve and the float64 unfused one -- on the 1k-image / 100k-point
 self-calibrating fisheye block of bench.py, after building the CUDA
 kernels from ops/csrc and holding each against its plain PyTorch version
-at the block's shapes.  Imports nothing of JAX.  Phases:
+at the block's shapes; then the paths of the JAX package's remaining
+Pallas kernels, its bench scripts, through their twins
+(bench_torch_streamseg.py, bench_torch_pallas_gather.py,
+bench_torch_pallas_onehot.py) at those scripts' sizes.  Imports nothing
+of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
-  2. build         nvcc of ops/csrc/fusedmv.cu and prefix.cu, one process
-                   each, started together (seconds, ptxas report)
+  2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
+                   gather, scatter), one process each, started together
+                   (seconds, ptxas report)
   3. block         synth.make_block at the bench size, its band plan
   4. kernels       K1 and K2 (three modes) against their plain versions on
                    one linearization: relative norm error <= 1e-5 on every
@@ -34,22 +39,39 @@ at the block's shapes.  Imports nothing of JAX.  Phases:
                    compute_covariance=False, device="cuda") in float64 for
                    3 GN iterations (depth cut from a converged solve);
                    the K4 launch count against 6 * steps + 2 * sum(CG)
+ 10. streamseg     K3 (the span segment-sum kernel) at bench_streamseg.py's
+                   defaults: sorted_segment_sum_streaming driven once
+                   (launch counts), then the kernel against its plain
+                   version (relative norm <= 1e-5, bitwise repeatable, the
+                   strided and transposed reads bitwise equal) and against
+                   segment.sorted_segment_sum (<= 1e-5); kernel, plain and
+                   torch.segment_reduce times, the byte bound
+ 11. probes        every probe of bench_pallas_gather.py (A-F) and
+                   bench_pallas_onehot.py (G, S, W, P) at its script's size,
+                   each driven once through its twin (launch counts), then
+                   against its plain version (gathers bitwise equal, the
+                   rest <= 1e-5 relative norm), bitwise repeatable, against
+                   the script's numpy reference where the script asserts;
+                   kernel, plain and library times, the byte bound; for W
+                   and P the largest id span of a chunk beside W
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
 any result.  The last three lines: the card's name and power limit, the
 kernel table as JSON, then {"ok": true, "device": {...}}.
 
-Bounds in the kernel table: the larger of the bytes of every input and
-output tensor of the call over 3.35 TB/s and the call's arithmetic over
-the peak rate of its type -- 67 TFLOP/s float32 (outside the tensor
-cores), 34 TFLOP/s float64 (H100 SXM data sheet) -- counted from the
-kernels' code per observation row.
+Bounds in the kernel table (utils/cudatime.bound): the larger of the
+bytes of every input and output tensor of the call over 3.35 TB/s and
+the call's arithmetic over the peak rate of its type -- 67 TFLOP/s
+float32 (outside the tensor cores), 34 TFLOP/s float64 (H100 SXM data
+sheet) -- counted from the kernels' code per observation row (K1, K2,
+K4) or from the function's own arithmetic (phases 10 and 11).  The
+table has one entry per kernel of phases 4-9 and one per probe of
+phases 10-11; `replaces` lists the pallas_call sites each stands for.
 """
 
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -57,9 +79,17 @@ import time
 import numpy as np
 import torch
 
-from fish_eye_bundle_adjustment_tpu_torch.ops import _build, fusedmv, prefix, segment
+import bench_torch_pallas_gather
+import bench_torch_pallas_onehot
+import bench_torch_streamseg
+from fish_eye_bundle_adjustment_tpu_torch.ops import (
+    _build, fusedmv, prefix, probes, segment, streamseg,
+)
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
+    bound, cuda_ms, line, measure, rel_norm,
+)
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
 SELFCAL = dict(
@@ -71,27 +101,25 @@ KERNEL_TOL = 1e-5  # both f32; only the summation order differs
 PREFIX_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 X_TOL = dict(rtol=3e-5, atol=3e-4)
 X_TOL_F64 = dict(rtol=1e-9, atol=1e-7)  # tests/test_torch_schur_unfused.py
+# phases 10-11: f32 kernels against their plain versions (only the order of
+# the additions differs; the gathers must be bitwise equal)
+PROBE_TOL = 1e-5
+CSRC = "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/"
 SOURCES = {
-    "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu",
-    "fused_schur_apply": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/fusedmv.cu",
-    "chunk_prefix": "fish_eye_bundle_adjustment_tpu_torch/ops/csrc/prefix.cu",
+    "fused_hpp_pass": CSRC + "fusedmv.cu",
+    "fused_schur_apply": CSRC + "fusedmv.cu",
+    "chunk_prefix": CSRC + "prefix.cu",
+    "span_segment_sum": CSRC + "streamseg.cu",
+    "gather_rows": CSRC + "gather.cu",
+    "gather_contract": CSRC + "gather.cu",
+    "scatter_rows": CSRC + "scatter.cu",
 }
+# the pallas_call each kernel of phases 4-9 stands for
 REPLACES = {
-    "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:326",
-    "fused_schur_apply": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:129",
-    "chunk_prefix": "fish_eye_bundle_adjustment_tpu/ops/attic/prefix.py:34",
+    "fused_hpp_pass": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:490",
+    "fused_schur_apply": "fish_eye_bundle_adjustment_tpu/ops/fusedmv.py:607",
+    "chunk_prefix": "fish_eye_bundle_adjustment_tpu/ops/attic/prefix.py:61",
 }
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-
-
-def bound(tensors, flops, dtype):
-    """(bound_ms, bound_by): bytes of every input and output tensor once
-    over the memory rate, against the arithmetic over the peak rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _run(cmd):
@@ -118,9 +146,9 @@ def phase_build():
     _build.load()
     secs = time.perf_counter() - t0
     print(f"[2 build] {so.name} in {secs:.2f} s")
-    for line in (_build.last_build_log or "").splitlines():
-        if "registers" in line or "bytes stack" in line or "Compiling entry" in line:
-            print(f"[2 build] {line.strip()}")
+    for msg in (_build.last_build_log or "").splitlines():
+        if "registers" in msg or "bytes stack" in msg or "Compiling entry" in msg:
+            print(f"[2 build] {msg.strip()}")
 
 
 def phase_block():
@@ -139,23 +167,6 @@ def phase_block():
           f"W={plan.W} n_pad={plan.n_pad} n_img_pad={plan.n_img_pad} "
           f"({time.perf_counter() - t0:.1f} s on the host)")
     return p, layout, opts, plan
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median device time of fn() in ms, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _glue_reads(outs, plan, ne, ni, kind):
@@ -482,6 +493,79 @@ def phase_unfused_main_path(p, layout, dev):
     return {"chunk_prefix": k4}
 
 
+def _reset_counts():
+    for mod in (fusedmv, prefix, streamseg, probes):
+        mod.reset_counts()
+
+
+def _read_counts():
+    """(kernel launches by wrapper, the sum of the plain versions' calls)."""
+    mods = (fusedmv, prefix, streamseg, probes)
+    launches = {k: v for mod in mods for k, v in mod.kernel_launches.items()}
+    return launches, sum(sum(mod.plain_calls.values()) for mod in mods)
+
+
+def _drive(tag, run, want):
+    """Run one probe's path with every count set to 0 just before it; fail
+    unless exactly the kernels `want` launched and no plain version ran.
+    Returns the launch counts of the run."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches, plain = _read_counts()
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"[{tag}] launches {ran}; plain versions called {plain}")
+    if set(ran) != set(want) or plain:
+        raise RuntimeError(f"[{tag}] FAIL: launches {ran} and {plain} plain calls, "
+                           f"expected {sorted(want)} only")
+    return out, ran
+
+
+def phase_streamseg(dev):
+    """K3 at bench_streamseg.py's defaults, through its twin."""
+    t0 = time.perf_counter()
+    probe, x, layout, plan = bench_torch_streamseg.make_probe(dev)
+    print(f"[10 streamseg] N={x.shape[0]} n_seg={plan.n_seg} D={x.shape[1]} M={plan.M}: "
+          f"G={plan.G} T={plan.T} ({time.perf_counter() - t0:.1f} s on the host)")
+    driven, ran = _drive("10 streamseg",
+                         lambda: streamseg.sorted_segment_sum_streaming(x, plan),
+                         {"span_segment_sum"})
+    r = measure(probe, PROBE_TOL)
+    r["launches"] = ran["span_segment_sum"]
+    # the (N, D) stream read through its strides against the (D, N) copy
+    if not torch.equal(driven, probe.call().T):
+        raise RuntimeError("[10 streamseg] FAIL: the strided and transposed reads differ")
+    err_k4 = rel_norm(driven, segment.sorted_segment_sum(x, layout))
+    print(f"[10 streamseg] {line(probe, r)}; bitwise repeatable, the strided read "
+          f"bitwise equal; vs segment.sorted_segment_sum (K4) {err_k4:.2e}")
+    if not err_k4 <= PROBE_TOL:
+        raise RuntimeError(f"[10 streamseg] FAIL: K3 off sorted_segment_sum by {err_k4:.3e}")
+    return [(probe, r)]
+
+
+def phase_probes(dev):
+    """Every probe of the two Pallas probe scripts, through their twins."""
+    t0 = time.perf_counter()
+    found = bench_torch_pallas_gather.make_probes(dev, "ABCDEF")
+    onehot, spans = bench_torch_pallas_onehot.make_probes(dev, "GSWP")
+    found += onehot
+    print(f"[11 probes] inputs of probes {''.join(p.name for p in found)} at N="
+          f"{bench_torch_pallas_gather.N} ({time.perf_counter() - t0:.1f} s on the host)")
+    results = []
+    for p in found:
+        kernels = {p.kernel} | ({"chunk_prefix"} if p.name == "W" else set())
+        if p.name in spans:
+            print(f"[11 probes] {p.name}: max ids/chunk span = {spans[p.name]}, "
+                  f"W = {bench_torch_pallas_onehot.W}")
+        _, ran = _drive(f"11 probes {p.name}", p.result, kernels)
+        r = measure(p, PROBE_TOL)
+        r["launches"] = ran[p.kernel]
+        print(f"[11 probes] {line(p, r)}; bitwise repeatable")
+        results.append((p, r))
+    return results
+
+
 def main():
     card = phase_environment()
     dev = torch.device("cuda")
@@ -493,6 +577,9 @@ def main():
     seg = phase_segment(p, layout, dev)
     phase_unfused_reference(dev)
     counts.update(phase_unfused_main_path(p, layout, dev))
+    t0 = time.perf_counter()
+    measured = phase_streamseg(dev) + phase_probes(dev)
+    print(f"[11 probes] phases 10-11 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration), K4 at the
     # width and type of the unfused path's CG image sum (float64, D = 6);
     # each error is the largest over the kernel's modes or widths
@@ -507,10 +594,17 @@ def main():
     for name in ("fused_hpp_pass", "fused_schur_apply", "chunk_prefix"):
         t = timings[name if name in timings else f"{name}/matvec"]
         table.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=[REPLACES[name]],
             launches=counts[name], max_abs_err=max(errs[name]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t.get("library_ms"),
+        ))
+    for probe, r in measured:
+        table.append(dict(
+            name=f"{probe.kernel}/{probe.name}", route="cuda", source=SOURCES[probe.kernel],
+            replaces=[probe.replaces], launches=r["launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     print(card)
     print(json.dumps({"kernels": table}))

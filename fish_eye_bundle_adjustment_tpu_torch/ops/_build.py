@@ -26,6 +26,8 @@ _BUILD_DIR = Path(__file__).parent / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
+
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (the ptxas register / shared-memory report);
 # None when the library came from the cache
@@ -33,6 +35,7 @@ last_build_log: Optional[str] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "fusedmv_abi_version": ([], _I),
     "fusedmv_error_string": ([_I], ctypes.c_char_p),
@@ -49,7 +52,24 @@ _SIGNATURES = {
     # x out | n_chunks d | stream
     "prefix_chunk_f32": ([_P, _P, _I, _I, _P], _I),
     "prefix_chunk_f64": ([_P, _P, _I, _I, _P], _I),
+    "streamseg_abi_version": ([], _I),
+    "streamseg_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # vals ids r0 r1 s0 | n_blocks S D | row_stride col_stride out_block
+    # out_slot out_col | out stream
+    "streamseg_span_sum": ([_P] * 5 + [_I] * 3 + [_L] * 5 + [_P, _P], _I),
+    "gather_abi_version": ([], _I),
+    # idx tab blk | n n_tab c win chunk | out stream
+    "gather_rows_f32": ([_P] * 3 + [_I] * 5 + [_P, _P], _I),
+    # idx m tab | n n_tab c | out stream
+    "gather_contract_f32": ([_P] * 3 + [_I] * 3 + [_P, _P], _I),
+    "scatter_abi_version": ([], _I),
+    "scatter_smem_bytes": ([_I], ctypes.c_size_t),
+    # idx vals | n n_tab c chunk round_bf16 | partials stream
+    "scatter_partials_f32": ([_P] * 2 + [_I] * 5 + [_P, _P], _I),
+    # partials | n_chunks width | out stream
+    "scatter_reduce_f32": ([_P, _I, _I, _P, _P], _I),
 }
+_ABI = {"fusedmv": 1, "prefix": 1, "streamseg": 1, "gather": 1, "scatter": 1}
 
 
 def _nvcc() -> str:
@@ -132,8 +152,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = res
-        if lib.fusedmv_abi_version() != 1 or lib.prefix_abi_version() != 1:
-            raise RuntimeError("kernel library ABI mismatch")
+        got = {src: getattr(lib, f"{src}_abi_version")() for src in _ABI}
+        if got != _ABI:
+            raise RuntimeError(f"kernel library ABI mismatch: {got}, want {_ABI}")
         _lib = lib
     return _lib
 

@@ -50,8 +50,6 @@ from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import BandPlan
 kernel_launches = {"fused_hpp_pass": 0, "fused_schur_apply": 0}
 plain_calls = {"fused_hpp_pass": 0, "fused_schur_apply": 0}
 
-_SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
-
 
 def reset_counts() -> None:
     for d in (kernel_launches, plain_calls):
@@ -304,7 +302,7 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
 
     dev = _check_common(band, acam_t, apt_t, ne, ni)
     lib = _build.load()
-    if lib.fusedmv_hpp_smem_bytes(band.T) > _SMEM_LIMIT:
+    if lib.fusedmv_hpp_smem_bytes(band.T) > _build.SMEM_LIMIT:
         raise ValueError(f"span T={band.T} needs more shared memory than a block has")
     G, M, W = band.G, band.M, band.W
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
@@ -349,7 +347,7 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
     if a_rows is not None:
         _check("a_rows", a_rows, (8, band.n_pad), torch.float32, dev)
     lib = _build.load()
-    if lib.fusedmv_schur_smem_bytes(band.T, M) > _SMEM_LIMIT:
+    if lib.fusedmv_schur_smem_bytes(band.T, M) > _build.SMEM_LIMIT:
         raise ValueError(f"span T={band.T} needs more shared memory than a block has")
     p_rows = _sym_rows(ne)
     i_rows = max(8, _sym_rows(ni))

@@ -118,14 +118,17 @@ def test_checkpoint_written_by_one_package_loads_in_the_other(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the solver included) in a fresh
-    interpreter leaves jax out of sys.modules."""
+    """Importing every module of the port (the solver included), chip_smoke.py
+    and the bench twins (bench_torch_*.py) in a fresh interpreter leaves jax
+    out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fish_eye_bundle_adjustment_tpu_torch as pkg\n"
         "import fish_eye_bundle_adjustment_tpu_torch.solver.schur\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke, bench_torch_streamseg, bench_torch_pallas_gather\n"
+        "import bench_torch_pallas_onehot\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('fish_eye_bundle_adjustment_tpu.'))\n"
         "assert not bad, bad\n"
