@@ -31,14 +31,17 @@ of JAX.  Phases:
                    block's stream length, D in {3, 6, 21}, float32 and
                    float64: relative norm error <= 1e-5 / 1e-12, bitwise
                    repeatable, median times of kernel, plain version and
-                   torch.cumsum, the byte bound; sorted_segment_sum on the
+                   torch.cumsum, the byte bound and the kernel's multiple
+                   of it; sorted_segment_sum on the
                    card against the CPU at the block's tie and image axes
   8. unfused ref   a 12-image float64 block and a 24-image 3-camera float32
                    block solved unfused on the card and on the CPU
   9. unfused main  solve_schur(problem, SchurOptions(cg_maxiter=40),
                    compute_covariance=False, device="cuda") in float64 for
                    3 GN iterations (depth cut from a converged solve);
-                   the K4 launch count against 6 * steps + 2 * sum(CG)
+                   the K4 launch count against 6 * steps + 2 * sum(CG),
+                   and per width: D = 3 sum(CG) + 2 * steps, D = 6
+                   sum(CG) + 3 * steps, D = 21 steps
  10. streamseg     K3 (the span segment-sum kernel) at bench_streamseg.py's
                    defaults: sorted_segment_sum_streaming driven once
                    (launch counts), then the kernel against its plain
@@ -52,7 +55,8 @@ of JAX.  Phases:
                    against its plain version (gathers bitwise equal, the
                    rest <= 1e-5 relative norm), bitwise repeatable, against
                    the script's numpy reference where the script asserts;
-                   kernel, plain and library times, the byte bound; for W
+                   kernel, plain and library times, the byte bound and
+                   the kernel's multiple of it; for W
                    and P the largest id span of a chunk beside W
 
 Each phase prints its own lines; a failing check raises, so the script
@@ -380,7 +384,7 @@ def phase_segment(p, layout, dev):
             print(f"[7 segment] K4 {name}: N={n} rel err {rel:.2e} (totals {rel_tot:.2e}) "
                   f"max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.4f} ms "
                   f"plain {plain_ms:.4f} ms torch.cumsum {library_ms:.4f} ms "
-                  f"bound {bound_ms:.4f} ms ({bound_by})")
+                  f"bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x)")
             if not (rel <= PREFIX_TOL[dtype] and rel_tot <= PREFIX_TOL[dtype]):
                 raise RuntimeError(f"[7 segment] FAIL: K4 {name} off its plain version")
             results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -458,6 +462,7 @@ def phase_unfused_main_path(p, layout, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k4 = prefix.kernel_launches["chunk_prefix"]
+    by_width = dict(sorted(prefix.kernel_launches_by_width.items()))
     plain = prefix.plain_calls["chunk_prefix"]
     fused = sum(fusedmv.kernel_launches.values()) + sum(fusedmv.plain_calls.values())
 
@@ -467,18 +472,22 @@ def phase_unfused_main_path(p, layout, dev):
           f"rms={res.rms:.6f} wall={wall:.2f} s "
           f"peak mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = 6 * len(cg) + 2 * sum(cg)
+    # D = 3: the tie sums of each matvec, the reduced rhs and back-substitution;
+    # D = 6: the image sums of each matvec, the rhs and linearize's two; D = 21:
+    # the pose preconditioner
+    want_width = {3: sum(cg) + 2 * len(cg), 6: sum(cg) + 3 * len(cg), 21: len(cg)}
     print(f"[9 unfused] launches: K4 chunk_prefix={k4}, expected 6 * steps + "
           f"2 * sum(cg) = {want} (linearize 2, reduced rhs 2, pose preconditioner "
-          f"1, back-substitution 1, 2 per CG matvec); plain versions called "
-          f"{plain}; fused kernels {fused}")
+          f"1, back-substitution 1, 2 per CG matvec); by width D: {by_width}, "
+          f"expected {want_width}; plain versions called {plain}; fused kernels {fused}")
     if not (np.isfinite(res.x).all() and np.isfinite(res.v).all()
             and np.isfinite(res.sigma02) and np.isfinite(res.delta_history).all()):
         raise RuntimeError("[9 unfused] FAIL: non-finite result")
     if res.iterations != 3:
         raise RuntimeError(f"[9 unfused] FAIL: {res.iterations} iterations, expected 3")
-    if k4 != want or plain or fused:
-        raise RuntimeError(f"[9 unfused] FAIL: launch counts K4 {k4}, plain {plain}, "
-                           f"fused {fused}")
+    if k4 != want or by_width != want_width or plain or fused:
+        raise RuntimeError(f"[9 unfused] FAIL: launch counts K4 {k4} ({by_width}), "
+                           f"plain {plain}, fused {fused}")
     kern = schur.SchurKernel(layout, opts)
     obs = schur.ObsData.from_problem(p, layout, dtype=np.float64, device=dev)
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
     # iop_part out_y p21_part i55_part out_pose out_iop out_p21 out_i55 stream
     "fusedmv_schur_apply": ([_P] * 12 + [_I] * 13 + [_P] * 10, _I),
     "prefix_abi_version": ([], _I),
+    "prefix_smem_bytes": ([_I, _I], ctypes.c_size_t),
     # x out | n_chunks d | stream
     "prefix_chunk_f32": ([_P, _P, _I, _I, _P], _I),
     "prefix_chunk_f64": ([_P, _P, _I, _I, _P], _I),
@@ -63,13 +64,14 @@ _SIGNATURES = {
     # idx m tab | n n_tab c | out stream
     "gather_contract_f32": ([_P] * 3 + [_I] * 3 + [_P, _P], _I),
     "scatter_abi_version": ([], _I),
-    "scatter_smem_bytes": ([_I], ctypes.c_size_t),
+    "scatter_max_chunk": ([], _I),
+    "scatter_max_table": ([], _I),
     # idx vals | n n_tab c chunk round_bf16 | partials stream
     "scatter_partials_f32": ([_P] * 2 + [_I] * 5 + [_P, _P], _I),
     # partials | n_chunks width | out stream
     "scatter_reduce_f32": ([_P, _I, _I, _P, _P], _I),
 }
-_ABI = {"fusedmv": 1, "prefix": 1, "streamseg": 1, "gather": 1, "scatter": 1}
+_ABI = {"fusedmv": 1, "prefix": 2, "streamseg": 1, "gather": 1, "scatter": 2}
 
 
 def _nvcc() -> str:

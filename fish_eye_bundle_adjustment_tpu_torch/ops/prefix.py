@@ -28,8 +28,10 @@ import torch
 CHUNK = 4096
 
 # Launch counts: the wrapper adds one where it launches the kernel
-# (`kernel_launches`) or runs the plain version on the CPU (`plain_calls`).
+# (`kernel_launches`, and `kernel_launches_by_width` under the width D) or
+# runs the plain version on the CPU (`plain_calls`).
 kernel_launches = {"chunk_prefix": 0}
+kernel_launches_by_width: dict = {}
 plain_calls = {"chunk_prefix": 0}
 
 _ENTRY = {torch.float32: "prefix_chunk_f32", torch.float64: "prefix_chunk_f64"}
@@ -37,6 +39,7 @@ _ENTRY = {torch.float32: "prefix_chunk_f32", torch.float64: "prefix_chunk_f64"}
 
 def reset_counts() -> None:
     kernel_launches["chunk_prefix"] = 0
+    kernel_launches_by_width.clear()
     plain_calls["chunk_prefix"] = 0
 
 
@@ -68,6 +71,12 @@ def chunk_prefix_kernel(vals):
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
     lib = _build.load()
+    smem = lib.prefix_smem_bytes(d, vals.element_size())
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"the chunk-prefix kernel stages its pieces of at least 4 rows of D = {d} "
+            f"columns in {smem} bytes of shared memory; a block has {_build.SMEM_LIMIT}"
+        )
     out = torch.empty_like(vals)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     code = getattr(lib, _ENTRY[vals.dtype])(
@@ -75,6 +84,7 @@ def chunk_prefix_kernel(vals):
     )
     _build.check(code, "chunk_prefix")
     kernel_launches["chunk_prefix"] += 1
+    kernel_launches_by_width[d] = kernel_launches_by_width.get(d, 0) + 1
     return out, out[CHUNK - 1 :: CHUNK]
 
 

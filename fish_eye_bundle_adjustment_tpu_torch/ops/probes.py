@@ -203,7 +203,7 @@ def scatter_rows_ref(idx, vals, n_tab, chunk, round_bf16=False, partials=False):
 
 def scatter_rows_kernel(idx, vals, n_tab, chunk, round_bf16=False, partials=False):
     """The scatter kernels: idx (N,) int32 and vals (N, C <= 8) float32,
-    contiguous CUDA tensors."""
+    contiguous CUDA tensors; chunk <= 8192 rows (one block sorts a chunk)."""
     what = "scatter"
     _check_cuda(what, idx=idx, vals=vals)
     _check_type(what, idx, "idx", torch.int32, 1)
@@ -217,11 +217,15 @@ def scatter_rows_kernel(idx, vals, n_tab, chunk, round_bf16=False, partials=Fals
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
     lib = _build.load()
-    smem = lib.scatter_smem_bytes(chunk)
-    if smem > _build.SMEM_LIMIT:
+    if chunk > lib.scatter_max_chunk():
         raise ValueError(
-            f"the {what} kernel stages a chunk's ids in {smem} bytes of shared memory "
-            f"at chunk={chunk}; a block has {_build.SMEM_LIMIT}"
+            f"the {what} kernel sorts a chunk's rows in one block's shared memory: "
+            f"chunk <= {lib.scatter_max_chunk()}, got chunk={chunk}"
+        )
+    if n_tab > lib.scatter_max_table():
+        raise ValueError(
+            f"the {what} kernel packs a table id and a chunk row into 32 bits: "
+            f"n_tab <= {lib.scatter_max_table()}, got n_tab={n_tab}"
         )
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     n_chunks = -(-n // chunk)

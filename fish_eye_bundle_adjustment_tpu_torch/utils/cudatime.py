@@ -130,7 +130,8 @@ def line(p: Probe, r: dict) -> str:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     whole = "" if r["probe_ms"] is None else f" whole probe {r['probe_ms']:.4f} ms"
     return (f"{p.name} {p.kernel}: kernel {r['ms']:.4f} ms{whole} plain {r['plain_ms']:.4f} ms "
-            f"library {lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"library {lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']}; kernel "
+            f"{r['ms'] / r['bound_ms']:.2f}x); "
             f"vs plain rel {r['rel_err']:.2e} max_abs {r['max_abs_err']:.2e}"
             f"{' (bitwise)' if p.exact else ''}; {p.ref_err} err vs the script's "
             f"numpy reference {r['ref_err']:.2e}")

@@ -14,7 +14,9 @@ within 1e-5 relative norm in float32, since only the order of the
 additions differs.  Every kernel repeats bit for bit on a second launch
 (no atomics).  Sizes are small and ragged: stream lengths that are no
 multiple of the chunk, empty segments, ids outside the table, a window
-that a chunk's ids break."""
+that a chunk's ids break; for the scatter's per-chunk sort also a chunk
+whose rows all hold one id, a table larger than the block's threads, and
+chunks that are no multiple of them."""
 
 import numpy as np
 import pytest
@@ -162,6 +164,49 @@ def test_scatter_rows_matches_plain(n, n_tab, chunk, c, round_bf16, partials):
     assert _rel(got, want) <= TOL
 
 
+def _scatter_ids(case, rng, n, n_tab, chunk):
+    if case == "one_id_per_chunk":  # every row of a chunk on one id, a run of a whole chunk
+        return (np.arange(n) // chunk * 37 + 5) % n_tab
+    if case == "outside_ids":  # a third of the ids outside the table, on both sides
+        ids = rng.integers(0, n_tab, n)
+        out = rng.random(n) < 1 / 3
+        return np.where(out, rng.choice([-7, -1, n_tab, n_tab + 100], n), ids)
+    return rng.integers(0, n_tab, n)
+
+
+@pytest.mark.parametrize("case,n,n_tab,chunk,c,round_bf16,partials", [
+    ("one_id_per_chunk", 4 * 4096, 1024, 4096, 8, False, False),
+    ("one_id_per_chunk", 3 * 2048 + 100, 1500, 2048, 8, False, True),
+    ("outside_ids", 3 * 4096, 1024, 4096, 8, False, False),
+    ("outside_ids", 2 * 333 + 10, 50, 333, 2, False, True),
+    ("random", 3 * 4096, 5000, 4096, 8, False, True),  # n_tab above the block's threads
+    ("random", 2 * 8192 + 3, 1024, 8192, 5, False, False),  # the largest chunk, a short last one
+    ("random", 7 * 1000 + 1, 700, 1000, 4, False, False),  # chunk no multiple of 512 threads
+    ("random", 5 * 2048 + 77, 1024, 2048, 8, True, True),  # bf16 rounding with partials
+    ("random", 50, 3, 64, 1, True, False),  # fewer rows than one chunk, most ids repeated
+    ("unaligned_vals", 2 * 4096 + 9, 1024, 4096, 8, False, False),  # no 16-byte loads
+])
+def test_scatter_rows_cases(case, n, n_tab, chunk, c, round_bf16, partials):
+    dev = _card()
+    rng = np.random.default_rng(n + n_tab + chunk)
+    ids = _scatter_ids(case, rng, n, n_tab, chunk)
+    idx = torch.as_tensor(ids.astype(np.int32), device=dev)
+    flat = torch.as_tensor(rng.standard_normal(n * c + 1).astype(np.float32), device=dev)
+    vals = flat[1:].view(n, c) if case == "unaligned_vals" else flat[:-1].view(n, c)
+    args = (idx, vals, n_tab, chunk, round_bf16, partials)
+    got = _twice(lambda: probes.scatter_rows(*args), probes, "scatter_rows")
+    want = probes.scatter_rows_ref(*args)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= TOL
+    if partials:  # every element written: the ids a chunk lacks are zero rows
+        n_chunks = -(-n // chunk)
+        for k in range(n_chunks):
+            live = ids[k * chunk:(k + 1) * chunk]
+            held = np.zeros(n_tab, bool)
+            held[live[(live >= 0) & (live < n_tab)]] = True
+            assert not got[k][torch.as_tensor(~held, device=dev)].any()
+
+
 def test_kernels_raise_on_inputs_they_do_not_take():
     dev = _card()
     idx = torch.zeros(64, dtype=torch.int32, device=dev)
@@ -184,8 +229,10 @@ def test_kernels_raise_on_inputs_they_do_not_take():
         probes.scatter_rows_kernel(idx, vals.double(), 16, 32)
     with pytest.raises(ValueError, match="1..8"):
         probes.scatter_rows_kernel(idx, torch.zeros((64, 9), device=dev), 16, 32)
-    with pytest.raises(ValueError, match="shared memory"):  # a chunk's ids past 227 KB
+    with pytest.raises(ValueError, match="shared memory"):  # one block sorts a chunk
         probes.scatter_rows_kernel(idx, vals, 16, 100_000)
+    with pytest.raises(ValueError, match="n_tab <= "):  # an id and a row packed in 32 bits
+        probes.scatter_rows_kernel(idx, vals, 1 << 20, 32)
     ids = torch.zeros(64, dtype=torch.int32, device=dev)
     r = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="float32"):

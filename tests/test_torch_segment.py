@@ -43,10 +43,19 @@ def test_chunk_prefix_ref_matches_pallas(d, dtype):
     got_p, got_t = tprefix.chunk_prefix(torch.from_numpy(vals))
     assert tprefix.plain_calls["chunk_prefix"] == 1
     assert tprefix.kernel_launches["chunk_prefix"] == 0
+    assert tprefix.kernel_launches_by_width == {}
     assert got_p.dtype == torch.from_numpy(vals).dtype
     assert tuple(got_p.shape) == vals.shape and tuple(got_t.shape) == (2, d)
     assert _rel(got_p, want_p) <= TOL[dtype]
     assert _rel(got_t, want_t) <= TOL[dtype]
+
+
+def test_kernel_entry_raises_on_cpu_tensors_and_counts_nothing():
+    tprefix.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        tprefix.chunk_prefix_kernel(torch.zeros((tprefix.CHUNK, 3)))
+    assert tprefix.kernel_launches == {"chunk_prefix": 0}
+    assert tprefix.kernel_launches_by_width == {}
 
 
 def _sorted_ids(rng, n, n_seg):

@@ -38,22 +38,54 @@ def _rel(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-300))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 21])
-def test_kernel_matches_plain(d, dtype):
-    dev = _card()
-    rng = np.random.default_rng(d)
-    vals = torch.as_tensor(rng.standard_normal((5 * prefix.CHUNK, d)), dtype=dtype, device=dev)
+def _check_prefix(vals):
+    """Two launches on vals: counted (in total and at its width), within
+    the tolerance of the plain version, bitwise repeatable."""
+    n, d = vals.shape
     prefix.reset_counts()
     got, tot = prefix.chunk_prefix(vals)
     again, _ = prefix.chunk_prefix(vals)
     assert prefix.kernel_launches["chunk_prefix"] == 2
+    assert prefix.kernel_launches_by_width == {d: 2}
     assert prefix.plain_calls["chunk_prefix"] == 0
     want, want_tot = prefix.chunk_prefix_ref(vals)
-    assert got.dtype == dtype and tuple(tot.shape) == (5, d)
-    assert _rel(got, want) <= TOL[dtype]
-    assert _rel(tot, want_tot) <= TOL[dtype]
+    assert got.dtype == vals.dtype and tuple(tot.shape) == (n // prefix.CHUNK, d)
+    assert _rel(got, want) <= TOL[vals.dtype]
+    assert _rel(tot, want_tot) <= TOL[vals.dtype]
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8, 21, 33])
+def test_kernel_matches_plain(d, dtype):
+    dev = _card()
+    rng = np.random.default_rng(d)
+    _check_prefix(torch.as_tensor(rng.standard_normal((5 * prefix.CHUNK, d)), dtype=dtype,
+                                  device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_chunks,d", [(1, 6), (1, 21), (300, 3), (300, 6), (300, 21)])
+def test_kernel_chunk_counts_mixed_magnitudes(n_chunks, d, dtype):
+    """One chunk and 300 chunks, values of either sign from 1e-3 to 1e3."""
+    dev = _card()
+    rng = np.random.default_rng(n_chunks * d)
+    mag = 10.0 ** rng.uniform(-3, 3, (n_chunks * prefix.CHUNK, d))
+    vals = mag * rng.choice([-1.0, 1.0], mag.shape)
+    _check_prefix(torch.as_tensor(vals, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 3, 6])
+def test_kernel_base_not_16_byte_aligned(d, dtype):
+    """A contiguous view one element into its storage: copied from the
+    aligned block below it and read at the offset."""
+    dev = _card()
+    rng = np.random.default_rng(d + 7)
+    flat = torch.as_tensor(rng.standard_normal(3 * prefix.CHUNK * d + 1), dtype=dtype, device=dev)
+    vals = flat[1:].view(3 * prefix.CHUNK, d)
+    assert vals.data_ptr() % 16
+    _check_prefix(vals)
 
 
 def test_segment_sum_on_card_matches_cpu():
@@ -82,6 +114,9 @@ def test_kernel_entry_raises_on_inputs_it_does_not_take():
         prefix.chunk_prefix_kernel(ok[:100])
     with pytest.raises(ValueError, match="D >= 1"):
         prefix.chunk_prefix_kernel(torch.zeros((prefix.CHUNK, 0), device=dev))
+    with pytest.raises(ValueError, match="shared memory"):  # 4 rows of 4000 doubles, twice
+        prefix.chunk_prefix_kernel(torch.zeros((prefix.CHUNK, 4000), dtype=torch.float64,
+                                               device=dev))
 
 
 def test_unfused_solve_on_card_matches_cpu():
@@ -93,6 +128,9 @@ def test_unfused_solve_on_card_matches_cpu():
     on_card = schur.solve_schur(p, opts, compute_covariance=False, device=dev)
     cg = on_card.cg_iterations
     assert prefix.kernel_launches["chunk_prefix"] == 6 * len(cg) + 2 * sum(cg)
+    # tie sums of 3 columns, image sums of 6, the pose preconditioner's 21
+    assert prefix.kernel_launches_by_width == {
+        3: sum(cg) + 2 * len(cg), 6: sum(cg) + 3 * len(cg), 21: len(cg)}
     assert prefix.plain_calls["chunk_prefix"] == 0
     on_cpu = schur.solve_schur(p, opts, compute_covariance=False, device="cpu")
     assert on_card.iterations == on_cpu.iterations
