@@ -15,13 +15,19 @@ of JAX.  Phases:
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
                    gather, scatter), one process each, started together
-                   (seconds, ptxas report)
-  3. block         synth.make_block at the bench size, its band plan
+                   (seconds, ptxas report; registers, spills and static
+                   shared memory of K1's and K2's kernels in one line each)
+  3. block         synth.make_block at the bench size, its band plan, and
+                   the host time of the kernels' index (BandArrays.from_plan)
   4. kernels       K1 and K2 (three modes) against their plain versions on
                    one linearization: relative norm error <= 1e-5 on every
                    output the solver reads, bitwise repeatable, median
                    times of kernel and plain version (CUDA events), the
-                   bound of each kernel and mode
+                   bound of each kernel and mode and the kernel's multiple
+                   of it, the device time of the group kernel and of the
+                   reduce (torch.profiler), the time with the pose terms
+                   not staged in shared memory; each group kernel's dynamic
+                   shared memory and resident CTAs per SM at these shapes
   5. reference     a 12-image block solved on the card and on the CPU
                    (plain versions): x within rtol=3e-5, atol=3e-4
   6. main path     solve_schur(..., SchurOptions(dtype=float32,
@@ -65,7 +71,8 @@ any result.  The last three lines: the card's name and power limit, the
 kernel table as JSON, then {"ok": true, "device": {...}}.
 
 Bounds in the kernel table (utils/cudatime.bound): the larger of the
-bytes of every input and output tensor of the call over 3.35 TB/s and
+bytes of every input and output tensor of the call (for K1 and K2 the
+plan's index among them) over 3.35 TB/s and
 the call's arithmetic over the peak rate of its type -- 67 TFLOP/s
 float32 (outside the tensor cores), 34 TFLOP/s float64 (H100 SXM data
 sheet) -- counted from the kernels' code per observation row (K1, K2,
@@ -76,6 +83,7 @@ phases 10-11; `replaces` lists the pallas_call sites each stands for.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +91,7 @@ import time
 import numpy as np
 import torch
 
+import bench_torch_fusedmv
 import bench_torch_pallas_gather
 import bench_torch_pallas_onehot
 import bench_torch_streamseg
@@ -150,9 +159,25 @@ def phase_build():
     _build.load()
     secs = time.perf_counter() - t0
     print(f"[2 build] {so.name} in {secs:.2f} s")
-    for msg in (_build.last_build_log or "").splitlines():
+    log = (_build.last_build_log or "").splitlines()
+    for msg in log:
         if "registers" in msg or "bytes stack" in msg or "Compiling entry" in msg:
             print(f"[2 build] {msg.strip()}")
+    # K1 and K2: registers, spills and static shared memory of each kernel
+    # (their dynamic shared memory depends on the span: phase 4)
+    name = None
+    for msg in log:
+        found = re.search(r"fusedmv_cu\w*?\d+(hpp_group_kernel|schur_group_kernelILb[01]E|"
+                          r"reduce_kernel)", msg)
+        if "Compiling entry" in msg:
+            name = found and found.group(1).replace("ILb0E", "<false>").replace(
+                "ILb1E", "<true> (preconditioner)")
+            spill = ""
+        elif name and "spill" in msg:
+            spill = msg.strip()
+        elif name and "registers" in msg:
+            print(f"[2 build] fusedmv.cu {name}: {msg.split(':', 1)[1].strip()}; {spill}")
+            name = None
 
 
 def phase_block():
@@ -170,26 +195,11 @@ def phase_block():
     print(f"[3 block] n_obs={p.n_obs} u={layout.u} G={plan.G} T={plan.T} "
           f"W={plan.W} n_pad={plan.n_pad} n_img_pad={plan.n_img_pad} "
           f"({time.perf_counter() - t0:.1f} s on the host)")
+    t0 = time.perf_counter()
+    fusedmv.BandArrays.from_plan(plan, "cpu")
+    print(f"[3 block] BandArrays.from_plan (the kernels' host index) "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the host")
     return p, layout, opts, plan
-
-
-def _glue_reads(outs, plan, ne, ni, kind):
-    """The slices of each output the solver glue reads, lanes summed."""
-    nt, n_img = plan.n_tie, plan.n_img
-    if kind == "hpp":
-        hs, de, di = outs
-        read = {"hs": hs[:6, :nt], "de": de[:ne, :n_img]}
-        if ni:
-            read["di"] = di[:ni].sum(1)
-        return read
-    read = {"pose": outs[0][:ne, :n_img], "y": outs[2][:3, :nt]}
-    if ni:
-        read["iop"] = outs[1][:ni].sum(1)
-    if len(outs) == 5:
-        read["p21"] = outs[3][: ne * (ne + 1) // 2, :n_img]
-        if ni:
-            read["i55"] = outs[4][: ni * (ni + 1) // 2].sum(1)
-    return read
 
 
 def phase_kernels(p, layout, opts, plan, dev):
@@ -202,55 +212,35 @@ def phase_kernels(p, layout, opts, plan, dev):
     rng = np.random.default_rng(0)
     rnd = lambda *s: torch.as_tensor(
         rng.standard_normal(s).astype(np.float32), device=dev)
-    vpose, vi, a_rows = rnd(8, band.n_img_pad), rnd(128), rnd(8, band.n_pad)
+    inputs = dict(vpose=rnd(8, band.n_img_pad), vi=rnd(128), a_rows=rnd(8, band.n_pad))
     streams = (fac.acam_t, fac.apt_t)
-    cases = {
-        "fused_hpp_pass": (
-            "hpp",
-            lambda: fusedmv.fused_hpp_pass(band, *streams, ne, ni),
-            lambda: fusedmv.fused_hpp_pass_ref(band, *streams, ne, ni),
-            (),
-        ),
-    }
-    modes = {
-        "matvec": dict(vpose=vpose, vi=vi),
-        "rhs_precond": dict(a_rows=a_rows, with_precond=True),
-        "backsub": dict(vpose=vpose, vi=vi, a_rows=a_rows),
-    }
-    for mode, kw in modes.items():
-        cases[f"fused_schur_apply/{mode}"] = (
-            "schur",
-            lambda kw=kw: fusedmv.fused_schur_apply(
-                band, *streams, fac.hpi_t, ne, ni, **kw),
-            lambda kw=kw: fusedmv.fused_schur_apply_ref(
-                band, *streams, fac.hpi_t, ne, ni, **kw),
-            (fac.hpi_t, *(v for v in kw.values() if torch.is_tensor(v))),
-        )
-    # arithmetic per owned row, from the kernels' code: K1 6 Hpp sym
-    # columns + ne pose and ni IOP squares (4 flops each); K2 matvec the
-    # expansion a (4(ne + ni)), t and b (12 each), the pose and IOP rows
-    # of C'b (4(ne + ni)), and 18 per tie for y = Hpp^-1 t.  The injected
-    # residual rows add 2; rhs + preconditioner has no expansion but per
-    # row the pose block's B (9 ne), C (15 ne) and 10 per symmetric pair,
-    # and 4 per IOP pair
-    rows, nt = p.n_obs, plan.n_tie
-    npair, ipair = ne * (ne + 1) // 2, ni * (ni + 1) // 2
-    flops = {
-        "fused_hpp_pass": rows * (24 + 4 * ne + 4 * ni),
-        "fused_schur_apply/matvec": rows * (24 + 8 * (ne + ni)) + 18 * nt,
-        "fused_schur_apply/rhs_precond": rows * (26 + 4 * (ne + ni) + 24 * ne
-                                                 + 10 * npair + 4 * ipair) + 18 * nt,
-        "fused_schur_apply/backsub": rows * (26 + 8 * (ne + ni)) + 18 * nt,
-    }
-    band_in = (band.rel, band.imgrow, band.sb, band.fr, band.er, band.ib)
+    flops = bench_torch_fusedmv.kernel_flops(p.n_obs, plan.n_tie, ne, ni)
+    band_in = bench_torch_fusedmv.band_inputs(band)
+
+    # shared memory and resident CTAs per SM of each group kernel here
+    lib = _build.load()
+    staged = fusedmv._stage(lambda st: lib.fusedmv_hpp_smem_bytes(band.T, ne, st), None, "")
+    for which, label, smem in (
+            (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(band.T, ne, staged)),
+            (1, "K2 schur_group_kernel<false> (matvec)",
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 1, 0, staged)),
+            (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 0, 1, 0))):
+        print(f"[4 kernels] {label}: {smem} bytes of dynamic shared memory at T={band.T}, "
+              f"M={band.M} (pose terms staged: {bool(staged) and which < 2}), "
+              f"{lib.fusedmv_occupancy(which, smem)} resident CTAs of 256 threads per SM")
+
     results = {}
+    cases = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs)
+    unstaged = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs,
+                                                stage=False)
     for name, (kind, kernel, plain, extra) in cases.items():
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"[4 kernels] FAIL: {name} is not bitwise repeatable")
-        g = _glue_reads(got, plan, ne, ni, kind)
-        w = _glue_reads(want, plan, ne, ni, kind)
+        g = bench_torch_fusedmv.glue_reads(got, plan, ne, ni, kind)
+        w = bench_torch_fusedmv.glue_reads(want, plan, ne, ni, kind)
         errs = {}
         max_abs = 0.0
         for key in w:
@@ -268,8 +258,14 @@ def phase_kernels(p, layout, opts, plan, dev):
         results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
         results[name]["bound_ms"], results[name]["bound_by"] = bound(
             (*streams, *band_in, *extra, *got), flops[name], torch.float32)
+        group, reduce = bench_torch_fusedmv.group_reduce_split(
+            bench_torch_fusedmv.split_ms(kernel))
+        alt = ""
+        if not name.endswith("rhs_precond"):
+            alt = f"; pose terms unstaged {cuda_ms(unstaged[name][1]):.4f} ms"
         print(f"[4 kernels] {name}: bound {results[name]['bound_ms']:.4f} ms "
-              f"({results[name]['bound_by']})")
+              f"({results[name]['bound_by']}; kernel {ms / results[name]['bound_ms']:.2f}x); "
+              f"on the device: group kernel {group:.4f} ms + reduce {reduce:.4f} ms{alt}")
     return results
 
 

@@ -24,8 +24,9 @@ operator therefore serves
 
 Each public wrapper dispatches on the device of its inputs: CUDA tensors
 launch the hand-written kernel of ops/csrc/fusedmv.cu (and raise on
-anything it does not take); CPU tensors run the plain PyTorch version
-(``*_ref``) beside it.  The output shapes are the TPU kernels' -- including
+anything it does not take), which also reads the host index of
+``group_index`` that BandArrays carries; CPU tensors run the plain
+PyTorch version (``*_ref``) beside it.  The output shapes are the TPU kernels' -- including
 the (., 128) lane partials of the IOP outputs, which callers sum over
 lanes -- so the solver glue ports line for line.
 
@@ -38,6 +39,7 @@ because the MXU truncates f32; it is ignored here.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -74,6 +76,13 @@ class BandArrays:
     # owning group of each stream row (-1: owned by none), for the plain
     # versions; the kernels derive ownership from sb/fr/er themselves
     row_group: torch.Tensor  # (n_pad,) int64
+    # the kernels' index (group_index), over each group's owned rows,
+    # numbered from the group's first owned row
+    tie_off: torch.Tensor  # (G, M+1) int32 run of tie slot m: [tie_off[m], tie_off[m+1])
+    col_perm: torch.Tensor  # (G, T) int16 in-band rows by band column, then row; -1 pad
+    col_off: torch.Tensor  # (G, W+1) int32 run of column c in col_perm
+    cover_off: torch.Tensor  # (n_img_pad/128 + 1,) int32 CSR offsets into cover_ids
+    cover_ids: torch.Tensor  # (G*W/128,) int32 groups whose band covers each 128-image block
     M: int = 128
     T: int = 128
     W: int = 128
@@ -85,12 +94,7 @@ class BandArrays:
 
     @staticmethod
     def from_plan(plan: BandPlan, device) -> "BandArrays":
-        row_group = np.full(plan.n_pad, -1, np.int64)
-        for g in range(plan.G):
-            start = int(plan.row_start[g])
-            lo = max(int(plan.first_row[g]), start)
-            hi = min(int(plan.end_row[g]), start + plan.T)
-            row_group[lo:hi] = g
+        index = group_index(plan)
         i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
         i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
         f32 = lambda a: torch.as_tensor(
@@ -107,11 +111,84 @@ class BandArrays:
             imgrank_of_img=i64(plan.imgrank_of_img),
             rank_of_slot=i64(plan.rank_of_slot),
             slot_of_rank=i64(plan.slot_of_rank),
-            row_group=i64(row_group),
+            row_group=i64(index["row_group"]),
+            tie_off=i32(index["tie_off"]),
+            col_perm=torch.as_tensor(index["col_perm"], device=device),
+            col_off=i32(index["col_off"]),
+            cover_off=i32(index["cover_off"]),
+            cover_ids=i32(index["cover_ids"]),
             M=plan.M, T=plan.T, W=plan.W, G=plan.G,
             n_pad=plan.n_pad, n_img_pad=plan.n_img_pad,
             n_tie=plan.n_tie, n_img=plan.n_img,
         )
+
+
+def _csr_offsets(keys, n):
+    """Offsets (n + 1,) of the runs of sorted integer keys in [0, n)."""
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=n), out=off[1:])
+    return off
+
+
+def group_index(plan) -> dict:
+    """The kernels' host index of a band plan, built once per problem.
+
+    Each group owns the rows [max(fr, 128 sb), min(er, 128 sb + T)) of
+    the tie-rank-sorted stream; its row i is stream row lo + i.
+
+    row_group (n_pad,)   owning group of each stream row, -1 for none
+    tie_off   (G, M+1)   tie slot m's rows are [tie_off[m], tie_off[m+1]):
+                         the stream is sorted by tie rank, so each slot is
+                         one run; control rows (rel = -1) lie in none
+    col_perm  (G, T)     the group's in-band rows ordered by band column
+                         and, within a column, by row; -1 past the end
+    col_off   (G, W+1)   column c's rows are col_perm[col_off[c]:col_off[c+1]]
+    cover_off, cover_ids CSR over the 128-image blocks of n_img_pad: the
+                         groups, ascending, whose band [128 ib, 128 ib + W)
+                         holds the block
+    """
+    G, M, T, W = plan.G, plan.M, plan.T, plan.W
+    if T > np.iinfo(np.int16).max + 1 or W % 128:
+        raise ValueError(f"the kernels' index takes T <= 32768 and W % 128 == 0 "
+                         f"(T={T}, W={W})")
+    start = np.asarray(plan.row_start, np.int64)
+    lo = np.maximum(np.asarray(plan.first_row, np.int64), start)
+    n = np.maximum(np.minimum(np.asarray(plan.end_row, np.int64), start + T) - lo, 0)
+    grp = np.repeat(np.arange(G), n)
+    first = np.concatenate([[0], np.cumsum(n)])
+    local = np.arange(first[-1]) - first[grp]
+    rows = lo[grp] + local
+    row_group = np.full(plan.n_pad, -1, np.int64)
+    row_group[rows] = grp
+
+    # tie runs: slot keys, control rows keyed M (past every run)
+    rel = np.asarray(plan.rel)[rows]
+    key = np.where((rel >= 0) & (rel < M), rel, M).astype(np.int64)
+    if (np.diff(key)[grp[1:] == grp[:-1]] < 0).any():
+        raise ValueError("a group's rows are not sorted by tie slot")
+    tie_off = _csr_offsets(grp * (M + 1) + key, G * (M + 1))[:-1].reshape(G, M + 1)
+    tie_off = tie_off - tie_off[:, :1]
+
+    # column order: stable sort of the in-band rows by (group, column)
+    img = np.asarray(plan.imgrow)[rows].astype(np.int64)
+    col = img - np.asarray(plan.img_base, np.int64)[grp]
+    inb = (img >= 0) & (col >= 0) & (col < W)
+    ck = grp[inb] * W + col[inb]
+    order = np.argsort(ck, kind="stable")
+    col_off = _csr_offsets(ck, G * W)[:-1].reshape(G, W)
+    col_off = np.concatenate([col_off, _csr_offsets(grp[inb], G)[1:, None]], axis=1)
+    col_off = col_off - col_off[:, :1]
+    g_in = grp[inb][order]
+    col_perm = np.full((G, T), -1, np.int16)
+    col_perm[g_in, np.arange(g_in.size) - _csr_offsets(g_in, G)[g_in]] = local[inb][order]
+
+    # covering groups of each 128-image block, ascending
+    wb = W // 128
+    blocks = (np.asarray(plan.img_base, np.int64)[:, None] // 128 + np.arange(wb)).ravel()
+    cover_ids = np.repeat(np.arange(G), wb)[np.argsort(blocks, kind="stable")]
+    cover_off = _csr_offsets(blocks, plan.n_img_pad // 128)
+    return dict(row_group=row_group, tie_off=tie_off, col_perm=col_perm,
+                col_off=col_off, cover_off=cover_off, cover_ids=cover_ids)
 
 
 def _sym_rows(k: int):
@@ -283,7 +360,35 @@ def _check_common(band, acam_t, apt_t, ne, ni):
     _check("imgrow", band.imgrow, (1, band.n_pad), torch.float32, dev)
     for name in ("sb", "fr", "er", "ib"):
         _check(name, getattr(band, name), (band.G,), torch.int32, dev)
+    G, n_blk = band.G, band.n_img_pad // 128
+    _check("tie_off", band.tie_off, (G, band.M + 1), torch.int32, dev)
+    _check("col_perm", band.col_perm, (G, band.T), torch.int16, dev)
+    _check("col_off", band.col_off, (G, band.W + 1), torch.int32, dev)
+    _check("cover_off", band.cover_off, (n_blk + 1,), torch.int32, dev)
+    _check("cover_ids", band.cover_ids, (G * band.W // 128,), torch.int32, dev)
     return dev
+
+
+def _index_ptrs(band):
+    """Pointers of the plan and its index, in the C entry points' order."""
+    return [t.data_ptr() for t in (
+        band.rel, band.imgrow, band.sb, band.fr, band.er, band.ib, band.tie_off,
+        band.col_perm, band.col_off, band.cover_off, band.cover_ids)]
+
+
+def _stage(smem_bytes, stage, what):
+    """Whether the kernel stages each row's pose-column terms in shared
+    memory: as asked, or (stage=None) when four CTAs still fit an SM --
+    the span is then short enough (T <= ~2200 at ne = 6) that the terms
+    need not be read again from L2.  Raises past the shared memory of a
+    block."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+
+    if stage is None:
+        stage = smem_bytes(1) <= _build.SMEM_LIMIT // 4
+    if smem_bytes(int(stage)) > _build.SMEM_LIMIT:
+        raise ValueError(f"{what} needs more shared memory than a block has")
+    return int(stage)
 
 
 def _ptr(t):
@@ -291,10 +396,11 @@ def _ptr(t):
 
 
 def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
-                   precision: str = "bf16x2"):
+                   precision: str = "bf16x2", stage: Optional[bool] = None):
     """Returns (hs (8, G*M): rows 0-5 = per-tie Hpp sym cols in RANK
     column order, de (8, n_img_pad): rows 0..ne-1 = raw pose diag(Hcc) in
-    image-RANK columns, di (8, 128): IOP diag lane-partials)."""
+    image-RANK columns, di (8, 128): IOP diag lane-partials).  `stage`
+    (kernel only): see _stage."""
     if _on_cpu(acam_t, apt_t):
         plain_calls["fused_hpp_pass"] += 1
         return fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni, precision)
@@ -302,17 +408,16 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
 
     dev = _check_common(band, acam_t, apt_t, ne, ni)
     lib = _build.load()
-    if lib.fusedmv_hpp_smem_bytes(band.T) > _build.SMEM_LIMIT:
-        raise ValueError(f"span T={band.T} needs more shared memory than a block has")
+    stage = _stage(lambda st: lib.fusedmv_hpp_smem_bytes(band.T, ne, st), stage,
+                   f"span T={band.T}")
     G, M, W = band.G, band.M, band.W
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     hs, de, di = emp(8, G * M), emp(8, band.n_img_pad), emp(8, 128)
     de_part, di_part = emp(G, 8, W), emp(G, 8, 128)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fusedmv_hpp_pass(
-        _ptr(acam_t), _ptr(apt_t), _ptr(band.rel), _ptr(band.imgrow),
-        _ptr(band.sb), _ptr(band.fr), _ptr(band.er), _ptr(band.ib),
-        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
+        _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band),
+        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni, stage,
         _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de), _ptr(di), stream,
     )
     _build.check(code, "fused_hpp_pass")
@@ -322,11 +427,13 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
 
 def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
                       vpose=None, vi=None, a_rows=None,
-                      precision: str = "bf16x2", with_precond: bool = False):
+                      precision: str = "bf16x2", with_precond: bool = False,
+                      stage: Optional[bool] = None):
     """Returns (out_pose (8, n_img_pad), out_iop (8, 128) lane-partial,
     y (8, G*M)[, p21 (p_rows, n_img_pad), i55 (i_rows, 128)]) -- see the
     module docstring; with_precond adds the Schur-Jacobi diagonal sym
-    columns in the same pass."""
+    columns in the same pass.  `stage` (kernel only, without the
+    preconditioner): see _stage."""
     if _on_cpu(acam_t, apt_t, hpi_t, vpose, vi, a_rows):
         plain_calls["fused_schur_apply"] += 1
         return fused_schur_apply_ref(
@@ -347,8 +454,10 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
     if a_rows is not None:
         _check("a_rows", a_rows, (8, band.n_pad), torch.float32, dev)
     lib = _build.load()
-    if lib.fusedmv_schur_smem_bytes(band.T, M) > _build.SMEM_LIMIT:
-        raise ValueError(f"span T={band.T} needs more shared memory than a block has")
+    stage = _stage(
+        lambda st: lib.fusedmv_schur_smem_bytes(band.T, M, W, ne, int(with_v),
+                                                int(with_precond), st),
+        False if with_precond else stage, f"span T={band.T} with M={M}")
     p_rows = _sym_rows(ne)
     i_rows = max(8, _sym_rows(ni))
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
@@ -360,11 +469,10 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         p21_part, i55_part = emp(G, p_rows, W), emp(G, i_rows, 128)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fusedmv_schur_apply(
-        _ptr(acam_t), _ptr(apt_t), _ptr(band.rel), _ptr(band.imgrow),
-        _ptr(a_rows), _ptr(vpose), _ptr(vi), _ptr(hpi_t),
-        _ptr(band.sb), _ptr(band.fr), _ptr(band.er), _ptr(band.ib),
+        _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band)[:2],
+        _ptr(a_rows), _ptr(vpose), _ptr(vi), _ptr(hpi_t), *_index_ptrs(band)[2:],
         G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
-        int(with_v), int(a_rows is not None), int(with_precond), p_rows, i_rows,
+        int(with_v), int(a_rows is not None), int(with_precond), stage, p_rows, i_rows,
         _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
         _ptr(i55_part), _ptr(out_pose), _ptr(out_iop), _ptr(p21), _ptr(i55),
         stream,
@@ -374,3 +482,30 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
     if with_precond:
         return out_pose, out_iop, out_y, p21, i55
     return out_pose, out_iop, out_y
+
+
+def _reduce_kernel(band: BandArrays, band_part, lane_part, band_live: int,
+                   lane_live: int):
+    """The second kernel of K1 and K2 alone, on given CUDA partials
+    (band_part (G, rows, W), lane_part (G, rows, 128)), for the card tests:
+    (band out (rows, n_img_pad), lane out (rows, 128))."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+
+    if _on_cpu(band_part, lane_part):
+        raise ValueError("_reduce_kernel runs on CUDA tensors only")
+    dev = band_part.device
+    G, rows, W = band_part.shape
+    lane_rows = lane_part.shape[1]
+    _check("band_part", band_part, (band.G, rows, band.W), torch.float32, dev)
+    _check("lane_part", lane_part, (band.G, lane_rows, 128), torch.float32, dev)
+    band_out = torch.empty((rows, band.n_img_pad), dtype=torch.float32, device=dev)
+    lane_out = torch.empty((lane_rows, 128), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    code = lib.fusedmv_reduce(
+        _ptr(band_part), _ptr(lane_part), _ptr(band.ib), _ptr(band.cover_off),
+        _ptr(band.cover_ids), G, W, band.n_img_pad, rows, band_live, lane_rows,
+        lane_live, _ptr(band_out), _ptr(lane_out),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(code, "fusedmv_reduce")
+    return band_out, lane_out

@@ -27,7 +27,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import fusedmv as tfused
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur as tschur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
-from _torch_blocks import jax_block, to_port
+from _torch_blocks import BLOCKS, STRESS, jax_block, stress_plan, to_port
 
 RTOL = 5e-4
 
@@ -176,3 +176,83 @@ def test_wrappers_refuse_other_devices():
             band, acam, apt, torch.from_numpy(a["hpi_t"]), ne, ni,
             a_rows=torch.from_numpy(a["a_rows"]),
         )
+
+
+# ---------------------------------------------------------------------------
+# the kernels' host index (ops/fusedmv.group_index) against a brute force
+# ---------------------------------------------------------------------------
+def _port_plan(name):
+    """The port's band plan of a test block (synth + solver of the port),
+    or of a stress stream of tests/_torch_blocks.py."""
+    if name in STRESS:
+        return stress_plan(name)
+    from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
+
+    kw, opts = INDEX_BLOCKS[name]
+    p = make_block(model="fisheye", **kw).problem
+    return tschur.make_band_plan(p, TLayout(p), tschur.SchurOptions(dtype=np.float32, **opts))
+
+
+INDEX_BLOCKS = {
+    name: (BLOCKS[name], {}) for name in NAMES
+} | {
+    # several groups: 16 tie ranks a group
+    "groups40": (dict(n_img=40, n_pts=600, seed=3, control_frac=0.05,
+                      settings_overrides={"inner_constraints": False}), dict(band_M=16)),
+}
+
+
+@pytest.mark.parametrize("name", list(INDEX_BLOCKS) + list(STRESS))
+def test_group_index_matches_brute_force(name):
+    plan = _port_plan(name)
+    idx = tfused.group_index(plan)
+    G, M, T, W = plan.G, plan.M, plan.T, plan.W
+    assert idx["tie_off"].shape == (G, M + 1) and idx["col_perm"].shape == (G, T)
+    assert idx["col_off"].shape == (G, W + 1) and idx["col_perm"].dtype == np.int16
+    row_group = np.full(plan.n_pad, -1)
+    control_only = 0
+    for g in range(G):
+        start = int(plan.row_start[g])
+        lo = max(int(plan.first_row[g]), start)
+        hi = min(int(plan.end_row[g]), start + T)
+        row_group[lo:hi] = g
+        rel, img = plan.rel[lo:hi], plan.imgrow[lo:hi]
+        control_only += bool(hi > lo and (rel < 0).all())
+        toff = idx["tie_off"][g]
+        assert toff[0] == 0 and (np.diff(toff) >= 0).all()
+        for m in range(M):  # each slot's rows are exactly its run
+            np.testing.assert_array_equal(np.flatnonzero(rel == m), np.arange(toff[m], toff[m + 1]))
+        coff, perm = idx["col_off"][g], idx["col_perm"][g]
+        base = int(plan.img_base[g])
+        assert coff[0] == 0 and (np.diff(coff) >= 0).all()
+        for c in range(W):  # each column's rows are its run, in row order
+            want = [i for i in range(hi - lo) if img[i] >= 0 and img[i] - base == c]
+            np.testing.assert_array_equal(perm[coff[c]:coff[c + 1]], want)
+        assert (perm[coff[W]:] == -1).all()
+    np.testing.assert_array_equal(idx["row_group"], row_group)
+    ib, wb = plan.img_base // 128, W // 128
+    for b in range(plan.n_img_pad // 128):
+        want = [g for g in range(G) if ib[g] <= b < ib[g] + wb]
+        np.testing.assert_array_equal(
+            idx["cover_ids"][idx["cover_off"][b]:idx["cover_off"][b + 1]], want)
+    if name in ("eop12", "empty_groups"):  # control observations: camera-only groups
+        assert control_only >= 1
+    if name == "groups40":
+        assert G >= 4
+    if name == "empty_groups":
+        assert (plan.first_row == plan.end_row).sum() >= 6
+
+
+def test_stage_choice():
+    """Staged when four CTAs still fit an SM, unstaged past that, and a
+    raise past the shared memory of a block, staged or not."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+
+    limit = _build.SMEM_LIMIT
+    assert tfused._stage(lambda st: limit // 4 if st else 1, None, "x") == 1
+    assert tfused._stage(lambda st: limit // 4 + 1 if st else 1, None, "x") == 0
+    assert tfused._stage(lambda st: limit if st else 1, True, "x") == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused._stage(lambda st: limit + 1 if st else 1, True, "x")
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused._stage(lambda st: limit + 1, None, "x")

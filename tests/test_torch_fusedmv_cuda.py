@@ -8,10 +8,12 @@ This file imports no JAX, so it runs where only the port is installed:
 Whether there is a card is decided inside each test.
 
 Tolerances: each kernel against its plain PyTorch version on the same
-inputs at relative norm <= 1e-5 per output the solver reads -- both are
-f32, only the summation order differs -- and bitwise-equal output on a
-repeated launch (no float atomics).  A solve on the card against the same
-solve on the CPU (plain versions): x within rtol=3e-5, atol=3e-4."""
+inputs at relative norm <= 1e-5 per output -- both are f32, only the
+summation order differs -- and bitwise-equal output on a repeated launch
+(no float atomics), with the pose-column terms staged in shared memory and
+without.  The reduce kernel alone is bitwise equal to the same sums taken
+in its order on the host.  A solve on the card against the same solve on
+the CPU (plain versions): x within rtol=3e-5, atol=3e-4."""
 
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import fusedmv
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
+
+from _torch_blocks import STRESS, stress_plan, stress_streams
 
 pytestmark = pytest.mark.gpu
 
@@ -37,6 +41,9 @@ BLOCKS = {
                       settings_overrides={"inner_constraints": False,
                                           "estimate_w": False, "estimate_p": False,
                                           "estimate_c": True, "estimate_xp": True}),
+    # many groups, several 128-image blocks of the band reduce
+    "img200": dict(n_img=200, n_pts=4000, seed=17, control_frac=0.02,
+                   settings_overrides={"inner_constraints": False, **SELFCAL}),
 }
 MODES = {
     "matvec": (True, False, False),
@@ -70,31 +77,92 @@ def _assert_close(got, want):
         assert float((g - w).norm()) <= 1e-5 * max(float(w.norm()), 1e-30)
 
 
+def _check_all(band, acam_t, apt_t, hpi_t, ne, ni, inputs):
+    """K1 and every K2 mode, pose terms staged and not, against the plain
+    versions (every output in full) and bitwise against a second launch."""
+    for cfg in (dict(stage=False), dict(stage=True)):
+        k1 = lambda: fusedmv.fused_hpp_pass(band, acam_t, apt_t, ne, ni, **cfg)
+        got, again = k1(), k1()
+        _assert_close(got, fusedmv.fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), ("K1", cfg)
+
+        for mode, (with_v, with_a, with_precond) in MODES.items():
+            kw = dict(with_precond=with_precond)
+            if with_v:
+                kw.update(vpose=inputs["vpose"], vi=inputs["vi"])
+            if with_a:
+                kw["a_rows"] = inputs["a_rows"]
+            args = (band, acam_t, apt_t, hpi_t, ne, ni)
+            k2 = lambda: fusedmv.fused_schur_apply(*args, **cfg, **kw)
+            got, again = k2(), k2()
+            _assert_close(got, fusedmv.fused_schur_apply_ref(*args, **kw))
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (mode, cfg)
+
+
 @pytest.mark.parametrize("name", list(BLOCKS))
 def test_kernels_match_plain(name):
     dev = _card()
     plan, fac, ne, ni = _linearized(name, dev)
-    band = fac.obs.band
     rng = np.random.default_rng(0)
     rnd = lambda *s: torch.as_tensor(
         rng.standard_normal(s).astype(np.float32), device=dev)
     inputs = dict(vpose=rnd(8, plan.n_img_pad), vi=rnd(128), a_rows=rnd(8, plan.n_pad))
+    _check_all(fac.obs.band, fac.acam_t, fac.apt_t, fac.hpi_t, ne, ni, inputs)
 
-    k1 = lambda: fusedmv.fused_hpp_pass(band, fac.acam_t, fac.apt_t, ne, ni)
-    got, again = k1(), k1()
-    _assert_close(got, fusedmv.fused_hpp_pass_ref(band, fac.acam_t, fac.apt_t, ne, ni))
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
-    for mode, (with_v, with_a, with_precond) in MODES.items():
-        kw = dict(with_precond=with_precond)
-        if with_v:
-            kw.update(vpose=inputs["vpose"], vi=inputs["vi"])
-        if with_a:
-            kw["a_rows"] = inputs["a_rows"]
-        args = (band, fac.acam_t, fac.apt_t, fac.hpi_t, ne, ni)
-        got, again = fusedmv.fused_schur_apply(*args, **kw), fusedmv.fused_schur_apply(*args, **kw)
-        _assert_close(got, fusedmv.fused_schur_apply_ref(*args, **kw))
-        assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
+@pytest.mark.parametrize("name", STRESS)
+def test_kernels_match_plain_on_stress_plans(name):
+    """One column holding every row of a group, one tie holding nearly a
+    whole span, groups without rows and camera-only groups, and the widest
+    band the wrappers take (W = 32640), on random streams."""
+    dev = _card()
+    plan = stress_plan(name)
+    band = fusedmv.BandArrays.from_plan(plan, dev)
+    a = {k: torch.as_tensor(v, device=dev) for k, v in stress_streams(plan).items()}
+    _check_all(band, a["acam_t"], a["apt_t"], a["hpi_t"], 6, 6, a)
+
+
+def test_reduce_equals_group_ordered_sums():
+    """The reduce on random partials, bitwise equal to the same sums taken
+    on the host in its order: an image-band output sums the ascending list
+    of the groups covering its 128-image block in eight contiguous slices,
+    each in order, then adds the slices in order; a lane output sums the
+    groups g = s (mod 32) for each slice s in ascending order, then adds
+    the 32 slices in order.  Rows past the live ones are zero."""
+    dev = _card()
+    plan, fac, _, _ = _linearized("img200", dev)
+    band = fac.obs.band
+    rng = np.random.default_rng(3)
+    G, W, rows, live, lane_live = band.G, band.W, 24, 21, 5
+    bpart = rng.standard_normal((G, rows, W)).astype(np.float32)
+    lpart = rng.standard_normal((G, 8, 128)).astype(np.float32)
+    got_b, got_l = fusedmv._reduce_kernel(
+        band, torch.as_tensor(bpart, device=dev), torch.as_tensor(lpart, device=dev),
+        live, lane_live)
+    ib = band.ib.cpu().numpy()
+    off, ids = band.cover_off.cpu().numpy(), band.cover_ids.cpu().numpy()
+    want_b = np.zeros((rows, band.n_img_pad), np.float32)
+    for blk in range(band.n_img_pad // 128):
+        cover = ids[off[blk]:off[blk + 1]]
+        assert list(cover) == sorted(cover)
+        total = np.zeros((live, 128), np.float32)
+        for w in range(8):
+            part = np.zeros((live, 128), np.float32)
+            for g in cover[w * len(cover) // 8:(w + 1) * len(cover) // 8]:
+                c = 128 * (blk - ib[g])
+                part += bpart[g, :live, c:c + 128]
+            total += part
+        want_b[:live, 128 * blk:128 * blk + 128] = total
+    want_l = np.zeros((8, 128), np.float32)
+    for s in range(32):
+        part = np.zeros((8, 128), np.float32)
+        for g in range(s, G, 32):
+            part += lpart[g]
+        want_l += part
+    want_l[lane_live:] = 0
+    assert G >= 32 and band.n_img_pad > W
+    np.testing.assert_array_equal(got_b.cpu().numpy(), want_b)
+    np.testing.assert_array_equal(got_l.cpu().numpy(), want_l)
 
 
 def test_wrappers_raise_on_inputs_the_kernel_does_not_take():

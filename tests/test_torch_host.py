@@ -128,7 +128,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, bench_torch_streamseg, bench_torch_pallas_gather\n"
-        "import bench_torch_pallas_onehot\n"
+        "import bench_torch_pallas_onehot, bench_torch_fusedmv\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('fish_eye_bundle_adjustment_tpu.'))\n"
         "assert not bad, bad\n"
