@@ -13,16 +13,15 @@ one run on one card.  Imports nothing of JAX.  Per kernel and mode:
 the relative error against the plain version, the median time
 (utils/cudatime.cuda_ms), the device time per call of each CUDA kernel
 the call launches (torch.profiler: the group kernel and the reduce), the
-bound and the kernel's multiple of it, and -- where the package has the
-choice -- the time without the pose-column terms staged in shared memory.
-Then the wall of each GN iteration at 40 CG iterations.  The last line is
+bound and the kernel's multiple of it, and the bytes of the kernels' host
+index, which the bound leaves out: it counts only the function's own
+inputs and outputs.  Then the wall of each GN iteration at 40 CG iterations.  The last line is
 one JSON object with every number.  chip_smoke.py phase 4 uses the
 functions here.
 """
 
 import argparse
 import dataclasses
-import inspect
 import json
 import os
 import subprocess
@@ -38,15 +37,14 @@ SELFCAL = dict(
 MODES = ("matvec", "rhs_precond", "backsub")
 
 
-def kernel_cases(fusedmv, band, fac, ne, ni, inputs, **kw):
+def kernel_cases(fusedmv, band, fac, ne, ni, inputs):
     """name -> (kind, kernel call, plain call, extra input tensors) for K1
-    and the three K2 modes on one linearization; `kw` goes to the kernel
-    calls only."""
+    and the three K2 modes on one linearization."""
     streams = (fac.acam_t, fac.apt_t)
     cases = {
         "fused_hpp_pass": (
             "hpp",
-            lambda: fusedmv.fused_hpp_pass(band, *streams, ne, ni, **kw),
+            lambda: fusedmv.fused_hpp_pass(band, *streams, ne, ni),
             lambda: fusedmv.fused_hpp_pass_ref(band, *streams, ne, ni),
             (),
         ),
@@ -60,7 +58,7 @@ def kernel_cases(fusedmv, band, fac, ne, ni, inputs, **kw):
         cases[f"fused_schur_apply/{mode}"] = (
             "schur",
             lambda mkw=mkw: fusedmv.fused_schur_apply(
-                band, *streams, fac.hpi_t, ne, ni, **mkw, **kw),
+                band, *streams, fac.hpi_t, ne, ni, **mkw),
             lambda mkw=mkw: fusedmv.fused_schur_apply_ref(
                 band, *streams, fac.hpi_t, ne, ni, **mkw),
             (fac.hpi_t, *(v for v in mkw.values() if hasattr(v, "data_ptr"))),
@@ -88,11 +86,18 @@ def kernel_flops(n_obs, n_tie, ne, ni):
 
 
 def band_inputs(band):
-    """The plan's tensors a kernel reads: geometry and, where the package
-    has it, the kernels' host index."""
-    names = ("rel", "imgrow", "sb", "fr", "er", "ib",
-             "tie_off", "col_perm", "col_off", "cover_off", "cover_ids")
-    return tuple(getattr(band, n, None) for n in names)
+    """The plan's tensors that are inputs of the function itself (the TPU
+    kernel's too): the stream's tie and image ranks, each group's span,
+    owned rows and image band."""
+    return tuple(getattr(band, n) for n in ("rel", "imgrow", "sb", "fr", "er", "ib"))
+
+
+def index_bytes(band):
+    """Bytes of the host index that this package's kernels read beside the
+    function's inputs (0 for a package without one)."""
+    names = ("tie_off", "col_perm", "col_off", "cover_off", "cover_ids")
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(band, n, None) for n in names) if t is not None)
 
 
 def glue_reads(outs, plan, ne, ni, kind):
@@ -154,7 +159,9 @@ def main(argv=None):
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build, fusedmv
     from fish_eye_bundle_adjustment_tpu_torch.solver import schur
     from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
-    from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import bound, cuda_ms, rel_norm
+    from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
+        HBM_BYTES_PER_S, bound, cuda_ms, rel_norm,
+    )
     from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
     if not torch.cuda.is_available():
@@ -190,11 +197,12 @@ def main(argv=None):
     rnd = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
     inputs = dict(vpose=rnd(8, band.n_img_pad), vi=rnd(128), a_rows=rnd(8, band.n_pad))
     flops = kernel_flops(p.n_obs, plan.n_tie, ne, ni)
-    # where the package has the choice: the pose terms not staged
-    params = inspect.signature(fusedmv.fused_hpp_pass).parameters
-    variants = {"unstaged": dict(stage=False)} if "stage" in params else {}
+    idx_b = index_bytes(band)
+    print(f"[block] the kernels' host index: {idx_b / 1e6:.3f} MB on the card "
+          f"({idx_b / HBM_BYTES_PER_S * 1e3:.4f} ms at the bound's memory rate; "
+          f"not in the bound)")
     result = dict(card=card, package=root, n_obs=p.n_obs, host_index_ms=host_s * 1e3,
-                  kernels={})
+                  index_bytes=idx_b, kernels={})
     for name, (kind, kernel, plain, extra) in kernel_cases(
             fusedmv, band, fac, ne, ni, inputs).items():
         got = kernel()
@@ -207,16 +215,9 @@ def main(argv=None):
                                    flops[name], torch.float32)
         r = dict(ms=ms, group_ms=group, reduce_ms=reduce, bound_ms=bound_ms,
                  bound_by=bound_by, x_bound=ms / bound_ms, rel_err=err)
-        line = (f"[kernels] {name}: {ms:.4f} ms (group kernel {group:.4f} + reduce "
-                f"{reduce:.4f} ms on the device), bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{ms / bound_ms:.2f}x), rel err vs plain {err:.2e}")
-        for key, kw in variants.items():
-            if key == "unstaged" and name.endswith("rhs_precond"):
-                continue
-            call = kernel_cases(fusedmv, band, fac, ne, ni, inputs, **kw)[name][1]
-            r[f"{key}_ms"] = cuda_ms(call, args.reps)
-            line += f"; {key.replace('_', ' ')} {r[f'{key}_ms']:.4f} ms"
-        print(line)
+        print(f"[kernels] {name}: {ms:.4f} ms (group kernel {group:.4f} + reduce "
+              f"{reduce:.4f} ms on the device), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{ms / bound_ms:.2f}x), rel err vs plain {err:.2e}")
         result["kernels"][name] = r
     del fac
 

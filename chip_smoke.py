@@ -25,9 +25,10 @@ of JAX.  Phases:
                    times of kernel and plain version (CUDA events), the
                    bound of each kernel and mode and the kernel's multiple
                    of it, the device time of the group kernel and of the
-                   reduce (torch.profiler), the time with the pose terms
-                   not staged in shared memory; each group kernel's dynamic
-                   shared memory and resident CTAs per SM at these shapes
+                   reduce (torch.profiler), the bytes of the kernels' host
+                   index (beside the bound, not in it); each group kernel's
+                   dynamic shared memory and resident CTAs per SM at these
+                   shapes, as its wrapper launches it
   5. reference     a 12-image block solved on the card and on the CPU
                    (plain versions): x within rtol=3e-5, atol=3e-4
   6. main path     solve_schur(..., SchurOptions(dtype=float32,
@@ -71,8 +72,8 @@ any result.  The last three lines: the card's name and power limit, the
 kernel table as JSON, then {"ok": true, "device": {...}}.
 
 Bounds in the kernel table (utils/cudatime.bound): the larger of the
-bytes of every input and output tensor of the call (for K1 and K2 the
-plan's index among them) over 3.35 TB/s and
+bytes of every input and output tensor of the function (for K1 and K2 the
+plan's geometry, not the index built for the CUDA kernels) over 3.35 TB/s and
 the call's arithmetic over the peak rate of its type -- 67 TFLOP/s
 float32 (outside the tensor cores), 34 TFLOP/s float64 (H100 SXM data
 sheet) -- counted from the kernels' code per observation row (K1, K2,
@@ -101,7 +102,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import (
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
-    bound, cuda_ms, line, measure, rel_norm,
+    HBM_BYTES_PER_S, bound, cuda_ms, line, measure, rel_norm,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
@@ -217,23 +218,25 @@ def phase_kernels(p, layout, opts, plan, dev):
     flops = bench_torch_fusedmv.kernel_flops(p.n_obs, plan.n_tie, ne, ni)
     band_in = bench_torch_fusedmv.band_inputs(band)
 
-    # shared memory and resident CTAs per SM of each group kernel here
+    # shared memory and resident CTAs per SM of each group kernel here, with
+    # the arguments its wrapper passes (matvec and back-substitution: vpose)
     lib = _build.load()
-    staged = fusedmv._stage(lambda st: lib.fusedmv_hpp_smem_bytes(band.T, ne, st), None, "")
     for which, label, smem in (
-            (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(band.T, ne, staged)),
-            (1, "K2 schur_group_kernel<false> (matvec)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 1, 0, staged)),
+            (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(band.T)),
+            (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 1, 0)),
             (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 0, 1, 0))):
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 0, 1))):
         print(f"[4 kernels] {label}: {smem} bytes of dynamic shared memory at T={band.T}, "
-              f"M={band.M} (pose terms staged: {bool(staged) and which < 2}), "
-              f"{lib.fusedmv_occupancy(which, smem)} resident CTAs of 256 threads per SM")
+              f"M={band.M}, W={band.W}, {lib.fusedmv_occupancy(which, smem)} resident "
+              f"CTAs of 256 threads per SM")
+    idx_b = bench_torch_fusedmv.index_bytes(band)
+    print(f"[4 kernels] the kernels' host index: {idx_b} bytes on the card, read beside "
+          f"the function's inputs and not counted in its bound "
+          f"({idx_b / HBM_BYTES_PER_S * 1e3:.4f} ms at the bound's memory rate)")
 
     results = {}
     cases = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs)
-    unstaged = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs,
-                                                stage=False)
     for name, (kind, kernel, plain, extra) in cases.items():
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
@@ -260,12 +263,9 @@ def phase_kernels(p, layout, opts, plan, dev):
             (*streams, *band_in, *extra, *got), flops[name], torch.float32)
         group, reduce = bench_torch_fusedmv.group_reduce_split(
             bench_torch_fusedmv.split_ms(kernel))
-        alt = ""
-        if not name.endswith("rhs_precond"):
-            alt = f"; pose terms unstaged {cuda_ms(unstaged[name][1]):.4f} ms"
         print(f"[4 kernels] {name}: bound {results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}; kernel {ms / results[name]['bound_ms']:.2f}x); "
-              f"on the device: group kernel {group:.4f} ms + reduce {reduce:.4f} ms{alt}")
+              f"on the device: group kernel {group:.4f} ms + reduce {reduce:.4f} ms")
     return results
 
 

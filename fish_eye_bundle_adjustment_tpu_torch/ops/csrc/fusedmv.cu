@@ -35,11 +35,9 @@
 //      microseconds.
 //   K1 reads each row once in a row pass (IOP lane terms, pose diagonal
 //      terms), then sums the tie runs of apt's products and the column runs.
-//   The per-row pose terms of both are staged in shared memory when the span
-//      is short enough (`stage`, chosen by the wrapper); past that the column
-//      runs read the pose rows again (L2).  Shared memory per CTA is then 10
-//      bytes a span row plus ~60 a tie slot, so T up to the band plan's 16384
-//      fits.
+//   The column runs of both read each in-band row's pose columns a second time,
+//      by col_perm, from L2.  Shared memory per CTA is 10 bytes a span row (K2;
+//      2 in K1) plus ~60 a tie slot, so T up to the band plan's 16384 fits.
 
 // Determinism: CUDA blocks run in no set order, so each CTA writes its own
 // partials -- (G, rows, W) for the image band, (G, rows, 128) for lane partials --
@@ -128,13 +126,12 @@ __device__ __forceinline__ int combine_lanes(float (&v)[K], int k_live, float* l
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 4)
 hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, const Plan p,
-                 int stage, float* __restrict__ hs, float* __restrict__ de_part,
+                 float* __restrict__ hs, float* __restrict__ de_part,
                  float* __restrict__ di_part) {
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int T = p.T, M = p.M, W = p.W, ne = p.ne, ni = p.ni;
-  float* de_s = smem;                          // (ne, T) staged pose terms
-  float* lane_s = smem + (stage ? ne * T : 0);  // (8, 128)
+  float* lane_s = smem;                                           // (8, 128)
   short* perm_s = reinterpret_cast<short*>(lane_s + 8 * kLanes);  // (T) col_perm
   const size_t n_pad = p.n_pad;
   int r0, n;
@@ -142,7 +139,7 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
   const short* perm = p.col_perm + static_cast<size_t>(g) * T;
   for (int k = threadIdx.x; k < T; k += kThreads) perm_s[k] = perm[k];
 
-  // row pass: IOP lane terms and the staged pose terms Aex_e^2 + Aey_e^2
+  // row pass: IOP lane terms
   float li[kMaxNI];
 #pragma unroll
   for (int k = 0; k < kMaxNI; ++k) li[k] = 0.f;
@@ -154,16 +151,6 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
         const float x = acam[(2 * ne + k) * n_pad + r];
         const float y = acam[(2 * ne + ni + k) * n_pad + r];
         li[k] += x * x + y * y;
-      }
-    }
-    if (stage) {
-#pragma unroll
-      for (int e = 0; e < kMaxNE; ++e) {
-        if (e < ne) {
-          const float x = acam[e * n_pad + r];
-          const float y = acam[(ne + e) * n_pad + r];
-          de_s[e * T + i] = x * x + y * y;
-        }
       }
     }
   }
@@ -194,7 +181,7 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
   }
 
   // lanes: di_part[g, k, lane] = sum over owned rows r with r % 128 == lane
-  // (the barrier inside also publishes de_s to the column runs)
+  // (the barrier inside also publishes perm_s to the column runs)
   const int lane = combine_lanes(li, ni, lane_s, r0);
   if (threadIdx.x < kLanes) {
     float* out = di_part + static_cast<size_t>(g) * 8 * kLanes + lane;
@@ -203,7 +190,8 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
       if (k < ni) out[k * kLanes] = li[k];
   }
 
-  // column runs: de_part[g, e, c] = sum over the rows of image column c
+  // column runs: de_part[g, e, c] = sum over the rows of image column c of
+  // Aex_e^2 + Aey_e^2
   const int* coff = p.col_off + static_cast<size_t>(g) * (W + 1);
   for (int c = threadIdx.x; c < W; c += kThreads) {
     float d[kMaxNE];
@@ -216,13 +204,9 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
 #pragma unroll
       for (int e = 0; e < kMaxNE; ++e) {
         if (e < ne) {
-          if (stage) {
-            d[e] += de_s[e * T + i];
-          } else {
-            const float x = acam[e * n_pad + r];
-            const float y = acam[(ne + e) * n_pad + r];
-            d[e] += x * x + y * y;
-          }
+          const float x = acam[e * n_pad + r];
+          const float y = acam[(ne + e) * n_pad + r];
+          d[e] += x * x + y * y;
         }
       }
     }
@@ -241,7 +225,7 @@ struct SchurIO {
   const float* vpose;  // (8, n_img_pad), or null
   const float* vi;     // (128), or null
   const float* hpi;    // (16, G*M) Hpp^-1 per tie slot, rows 3p+q
-  int with_v, with_a, stage, p_rows, i_rows;
+  int with_v, with_a, p_rows, i_rows;
   float* pose_part;  // (G, 8, W)
   float* iop_part;   // (G, 8, 128)
   float* out_y;      // (8, G*M)
@@ -285,13 +269,12 @@ __device__ __forceinline__ void load_row(const float* __restrict__ acam,
 }
 
 // The second half of a row, once its tie's y is known: b = a - Ap y, the IOP
-// lane terms, and the pose terms of C'b staged in shared memory (or b kept
-// for the column runs).
+// lane terms, and b kept for the column runs.
 template <bool kPrecond>
 __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const Plan& p,
-                                           bool stage, float* ab_s, float* be_s,
-                                           const float* y_s, RowPass2<kPrecond>* acc) {
-  const int T = p.T, M = p.M, ne = p.ne, ni = p.ni;
+                                           float* ab_s, const float* y_s,
+                                           RowPass2<kPrecond>* acc) {
+  const int T = p.T, M = p.M, ni = p.ni;
   float bx = ab_s[i], by = ab_s[T + i];
   if (m >= 0 && m < M) {
 #pragma unroll
@@ -311,14 +294,8 @@ __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const
       for (int b = a; b < kMaxNI; ++b, ++k)
         if (b < ni) acc->li[k] += d.ix[a] * d.ix[b] + d.iy[a] * d.iy[b];
   }
-  if (stage) {
-#pragma unroll
-    for (int e = 0; e < kMaxNE; ++e)
-      if (e < ne) be_s[e * T + i] = d.ex[e] * bx + d.ey[e] * by;
-  } else {
-    ab_s[i] = bx;
-    ab_s[T + i] = by;
-  }
+  ab_s[i] = bx;
+  ab_s[T + i] = by;
 }
 
 // One CTA per group.  The owned rows are taken in tiles of kThreads, one row
@@ -334,10 +311,8 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int T = p.T, M = p.M, W = p.W, ne = p.ne, ni = p.ni;
-  const bool stage = !kPrecond && io.stage;
   float* ab_s = smem;                                // (2, T) a, then b, of each row
-  float* be_s = ab_s + 2 * T;                        // (ne, T) staged pose terms
-  float* p_s = be_s + (stage ? ne * T : 0);          // (3, kThreads) P of the tile's rows
+  float* p_s = ab_s + 2 * T;                         // (3, kThreads) P of the tile's rows
   float* t_s = p_s + 3 * kThreads;                   // (3, M) running tie sums
   float* y_s = t_s + 3 * M;                          // (3, M) Hpp^-1 t
   float* lane_s = y_s + 3 * M;                       // (lane values, 128)
@@ -448,7 +423,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
 
     const bool tie = m >= 0 && m < M;
     if (i < t1 && (!tie || toff_s[m + 1] <= t1))
-      finish_row<kPrecond>(d, i, m, p, stage, ab_s, be_s, y_s, &lt);
+      finish_row<kPrecond>(d, i, m, p, ab_s, y_s, &lt);
   }
   // tie slots without rows
   for (int mm = threadIdx.x; mm < M; mm += kThreads)
@@ -463,12 +438,12 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
     if (m >= 0 && m < M && toff_s[m + 1] > t1) {
       RowData d;
       load_row(acam, apt, n_pad, r, ne, ni, &d);
-      finish_row<kPrecond>(d, i, m, p, stage, ab_s, be_s, y_s, &lt);
+      finish_row<kPrecond>(d, i, m, p, ab_s, y_s, &lt);
     }
   }
 
   // lanes: IOP rows of C'b (and the IOP diagonal blocks); the barrier inside
-  // also publishes ab_s / be_s to the column runs
+  // also publishes ab_s to the column runs
   const int n_lane_vals = kPrecond ? kMaxNI + kIopPairs : ni;
   const int lane = combine_lanes(lt.li, n_lane_vals, lane_s, r0);
   if (threadIdx.x < kLanes) {
@@ -499,12 +474,6 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
     const int end = coff[c + 1];
     for (int k = coff[c]; k < end; ++k) {
       const int i = perm_s[k];
-      if (stage) {
-#pragma unroll
-        for (int e = 0; e < kMaxNE; ++e)
-          if (e < ne) acc[e] += be_s[e * T + i];
-        continue;
-      }
       const size_t r = r0 + i;
       const float bx = ab_s[i], by = ab_s[T + i];
       float ex[kMaxNE], ey[kMaxNE];
@@ -732,25 +701,22 @@ Plan make_plan(const float* rel, const float* imgrow, const int* sb, const int* 
 
 extern "C" {
 
-int fusedmv_abi_version() { return 2; }
+int fusedmv_abi_version() { return 3; }
 
 const char* fusedmv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of one CTA; `stage` holds the ne per-row pose terms.
-size_t fusedmv_hpp_smem_bytes(int T, int ne, int stage) {
-  return ((stage ? static_cast<size_t>(ne) * T : 0) + 8 * kLanes) * sizeof(float) +
-         static_cast<size_t>(T) * sizeof(short);
+// Dynamic shared memory of one CTA.
+size_t fusedmv_hpp_smem_bytes(int T) {
+  return 8 * kLanes * sizeof(float) + static_cast<size_t>(T) * sizeof(short);
 }
 
-size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond,
-                                int stage) {
-  const size_t rows = 2 + ((stage && !with_precond) ? ne : 0);
+size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond) {
   const size_t lane_vals = kMaxNI + (with_precond ? kIopPairs : 0);
   const size_t v = (with_v && ne * W <= kMaxStagedV) ? static_cast<size_t>(ne) * W : 0;
-  return (rows * T + 3 * kThreads + 15 * static_cast<size_t>(M) + lane_vals * kLanes + v) *
-             sizeof(float) +
+  return (2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
+          lane_vals * kLanes + v) * sizeof(float) +
          (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
 }
 
@@ -760,19 +726,18 @@ int fusedmv_hpp_pass(const float* acam, const float* apt, const float* rel,
                      const float* imgrow, const int* sb, const int* fr, const int* er,
                      const int* ib, const int* tie_off, const short* col_perm,
                      const int* col_off, const int* cover_off, const int* cover_ids, int G,
-                     int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni, int stage,
-                     float* hs, float* de_part, float* di_part, float* de, float* di,
-                     void* stream) {
+                     int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni, float* hs,
+                     float* de_part, float* di_part, float* de, float* di, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
                            cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni);
-  const size_t smem = fusedmv_hpp_smem_bytes(T, ne, stage);
+  const size_t smem = fusedmv_hpp_smem_bytes(T);
   const void* fn = reinterpret_cast<const void*>(hpp_group_kernel);
   int err = set_smem(fn, smem);
   if (err) return err;
   if (G > 0) {
-    hpp_group_kernel<<<G, kThreads, smem, s>>>(acam, apt, p, stage, hs, de_part, di_part);
+    hpp_group_kernel<<<G, kThreads, smem, s>>>(acam, apt, p, hs, de_part, di_part);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
@@ -793,17 +758,17 @@ int fusedmv_schur_apply(const float* acam, const float* apt, const float* rel,
                         const int* er, const int* ib, const int* tie_off, const short* col_perm,
                         const int* col_off, const int* cover_off, const int* cover_ids, int G,
                         int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni,
-                        int with_v, int with_a, int with_precond, int stage, int p_rows,
-                        int i_rows, float* pose_part, float* iop_part, float* out_y,
+                        int with_v, int with_a, int with_precond, int p_rows, int i_rows,
+                        float* pose_part, float* iop_part, float* out_y,
                         float* p21_part, float* i55_part, float* out_pose, float* out_iop,
                         float* out_p21, float* out_i55, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
                            cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni);
-  const SchurIO io{arows,    vpose,    vi,    hpi,      with_v,  with_a, stage, p_rows,
-                   i_rows,   pose_part, iop_part, out_y, p21_part, i55_part};
-  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond, stage);
+  const SchurIO io{arows,  vpose,     vi,       hpi,   with_v,   with_a,
+                   p_rows, i_rows,    pose_part, iop_part, out_y, p21_part, i55_part};
+  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond);
   const void* fn = with_precond ? reinterpret_cast<const void*>(schur_group_kernel<true>)
                                 : reinterpret_cast<const void*>(schur_group_kernel<false>);
   int err = set_smem(fn, smem);

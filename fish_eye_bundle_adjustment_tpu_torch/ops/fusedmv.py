@@ -39,7 +39,6 @@ because the MXU truncates f32; it is ignored here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -376,31 +375,15 @@ def _index_ptrs(band):
         band.col_perm, band.col_off, band.cover_off, band.cover_ids)]
 
 
-def _stage(smem_bytes, stage, what):
-    """Whether the kernel stages each row's pose-column terms in shared
-    memory: as asked, or (stage=None) when four CTAs still fit an SM --
-    the span is then short enough (T <= ~2200 at ne = 6) that the terms
-    need not be read again from L2.  Raises past the shared memory of a
-    block."""
-    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
-
-    if stage is None:
-        stage = smem_bytes(1) <= _build.SMEM_LIMIT // 4
-    if smem_bytes(int(stage)) > _build.SMEM_LIMIT:
-        raise ValueError(f"{what} needs more shared memory than a block has")
-    return int(stage)
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
-                   precision: str = "bf16x2", stage: Optional[bool] = None):
+                   precision: str = "bf16x2"):
     """Returns (hs (8, G*M): rows 0-5 = per-tie Hpp sym cols in RANK
     column order, de (8, n_img_pad): rows 0..ne-1 = raw pose diag(Hcc) in
-    image-RANK columns, di (8, 128): IOP diag lane-partials).  `stage`
-    (kernel only): see _stage."""
+    image-RANK columns, di (8, 128): IOP diag lane-partials)."""
     if _on_cpu(acam_t, apt_t):
         plain_calls["fused_hpp_pass"] += 1
         return fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni, precision)
@@ -408,8 +391,6 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
 
     dev = _check_common(band, acam_t, apt_t, ne, ni)
     lib = _build.load()
-    stage = _stage(lambda st: lib.fusedmv_hpp_smem_bytes(band.T, ne, st), stage,
-                   f"span T={band.T}")
     G, M, W = band.G, band.M, band.W
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     hs, de, di = emp(8, G * M), emp(8, band.n_img_pad), emp(8, 128)
@@ -417,7 +398,7 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fusedmv_hpp_pass(
         _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band),
-        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni, stage,
+        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
         _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de), _ptr(di), stream,
     )
     _build.check(code, "fused_hpp_pass")
@@ -427,13 +408,11 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
 
 def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
                       vpose=None, vi=None, a_rows=None,
-                      precision: str = "bf16x2", with_precond: bool = False,
-                      stage: Optional[bool] = None):
+                      precision: str = "bf16x2", with_precond: bool = False):
     """Returns (out_pose (8, n_img_pad), out_iop (8, 128) lane-partial,
     y (8, G*M)[, p21 (p_rows, n_img_pad), i55 (i_rows, 128)]) -- see the
     module docstring; with_precond adds the Schur-Jacobi diagonal sym
-    columns in the same pass.  `stage` (kernel only, without the
-    preconditioner): see _stage."""
+    columns in the same pass."""
     if _on_cpu(acam_t, apt_t, hpi_t, vpose, vi, a_rows):
         plain_calls["fused_schur_apply"] += 1
         return fused_schur_apply_ref(
@@ -454,10 +433,6 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
     if a_rows is not None:
         _check("a_rows", a_rows, (8, band.n_pad), torch.float32, dev)
     lib = _build.load()
-    stage = _stage(
-        lambda st: lib.fusedmv_schur_smem_bytes(band.T, M, W, ne, int(with_v),
-                                                int(with_precond), st),
-        False if with_precond else stage, f"span T={band.T} with M={M}")
     p_rows = _sym_rows(ne)
     i_rows = max(8, _sym_rows(ni))
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
@@ -472,7 +447,7 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band)[:2],
         _ptr(a_rows), _ptr(vpose), _ptr(vi), _ptr(hpi_t), *_index_ptrs(band)[2:],
         G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
-        int(with_v), int(a_rows is not None), int(with_precond), stage, p_rows, i_rows,
+        int(with_v), int(a_rows is not None), int(with_precond), p_rows, i_rows,
         _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
         _ptr(i55_part), _ptr(out_pose), _ptr(out_iop), _ptr(p21), _ptr(i55),
         stream,

@@ -243,16 +243,19 @@ def test_group_index_matches_brute_force(name):
         assert (plan.first_row == plan.end_row).sum() >= 6
 
 
-def test_stage_choice():
-    """Staged when four CTAs still fit an SM, unstaged past that, and a
-    raise past the shared memory of a block, staged or not."""
-    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+def test_group_index_raises_past_its_limits():
+    """The index refuses spans past int16 row numbers, bands that are not
+    whole 128-image blocks, and a group whose rows are not in tie order."""
+    import dataclasses
 
-    limit = _build.SMEM_LIMIT
-    assert tfused._stage(lambda st: limit // 4 if st else 1, None, "x") == 1
-    assert tfused._stage(lambda st: limit // 4 + 1 if st else 1, None, "x") == 0
-    assert tfused._stage(lambda st: limit if st else 1, True, "x") == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tfused._stage(lambda st: limit + 1 if st else 1, True, "x")
-    with pytest.raises(ValueError, match="shared memory"):
-        tfused._stage(lambda st: limit + 1, None, "x")
+    plan = _port_plan("groups40")
+    with pytest.raises(ValueError, match="T <= 32768"):
+        tfused.group_index(dataclasses.replace(plan, T=32768 + 128))
+    with pytest.raises(ValueError, match="W % 128"):
+        tfused.group_index(dataclasses.replace(plan, W=plan.W + 64))
+    lo, hi = int(plan.first_row[0]), int(plan.end_row[0])  # a group of ties
+    rel = plan.rel.copy()
+    rel[lo:hi] = rel[lo:hi][::-1]
+    assert (np.diff(rel[lo:hi]) < 0).any()
+    with pytest.raises(ValueError, match="not sorted by tie slot"):
+        tfused.group_index(dataclasses.replace(plan, rel=rel))

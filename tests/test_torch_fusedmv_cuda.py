@@ -10,8 +10,7 @@ Whether there is a card is decided inside each test.
 Tolerances: each kernel against its plain PyTorch version on the same
 inputs at relative norm <= 1e-5 per output -- both are f32, only the
 summation order differs -- and bitwise-equal output on a repeated launch
-(no float atomics), with the pose-column terms staged in shared memory and
-without.  The reduce kernel alone is bitwise equal to the same sums taken
+(no float atomics).  The reduce kernel alone is bitwise equal to the same sums taken
 in its order on the host.  A solve on the card against the same solve on
 the CPU (plain versions): x within rtol=3e-5, atol=3e-4."""
 
@@ -78,25 +77,24 @@ def _assert_close(got, want):
 
 
 def _check_all(band, acam_t, apt_t, hpi_t, ne, ni, inputs):
-    """K1 and every K2 mode, pose terms staged and not, against the plain
-    versions (every output in full) and bitwise against a second launch."""
-    for cfg in (dict(stage=False), dict(stage=True)):
-        k1 = lambda: fusedmv.fused_hpp_pass(band, acam_t, apt_t, ne, ni, **cfg)
-        got, again = k1(), k1()
-        _assert_close(got, fusedmv.fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni))
-        assert all(torch.equal(a, b) for a, b in zip(got, again)), ("K1", cfg)
+    """K1 and every K2 mode against the plain versions (every output in
+    full) and bitwise against a second launch."""
+    k1 = lambda: fusedmv.fused_hpp_pass(band, acam_t, apt_t, ne, ni)
+    got, again = k1(), k1()
+    _assert_close(got, fusedmv.fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni))
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "K1"
 
-        for mode, (with_v, with_a, with_precond) in MODES.items():
-            kw = dict(with_precond=with_precond)
-            if with_v:
-                kw.update(vpose=inputs["vpose"], vi=inputs["vi"])
-            if with_a:
-                kw["a_rows"] = inputs["a_rows"]
-            args = (band, acam_t, apt_t, hpi_t, ne, ni)
-            k2 = lambda: fusedmv.fused_schur_apply(*args, **cfg, **kw)
-            got, again = k2(), k2()
-            _assert_close(got, fusedmv.fused_schur_apply_ref(*args, **kw))
-            assert all(torch.equal(a, b) for a, b in zip(got, again)), (mode, cfg)
+    for mode, (with_v, with_a, with_precond) in MODES.items():
+        kw = dict(with_precond=with_precond)
+        if with_v:
+            kw.update(vpose=inputs["vpose"], vi=inputs["vi"])
+        if with_a:
+            kw["a_rows"] = inputs["a_rows"]
+        args = (band, acam_t, apt_t, hpi_t, ne, ni)
+        k2 = lambda: fusedmv.fused_schur_apply(*args, **kw)
+        got, again = k2(), k2()
+        _assert_close(got, fusedmv.fused_schur_apply_ref(*args, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
 
 
 @pytest.mark.parametrize("name", list(BLOCKS))
