@@ -339,27 +339,28 @@ __device__ __forceinline__ void load_row(const float* __restrict__ acam,
   }
 }
 
-// This thread's row of a staged tile (rows r0 .. of the stream).
-__device__ __forceinline__ float staged(const float* stg, const Pieces& pc, int j, size_t r0) {
-  return stg[j * kPiece + mis(pc.src(j, r0)) + threadIdx.x];
+// This thread's row of staged piece j; pos_s[j] = j * kPiece + the piece's
+// misalignment, written by the lane that copied it.
+__device__ __forceinline__ float staged(const float* stg, const int* pos_s, int j) {
+  return stg[pos_s[j] + threadIdx.x];
 }
 
-__device__ __forceinline__ void load_staged_row(const float* stg, const Pieces& pc, size_t r0,
+__device__ __forceinline__ void load_staged_row(const float* stg, const int* pos_s, int na,
                                                 int ne, int ni, RowData* d) {
 #pragma unroll
   for (int e = 0; e < kMaxNE; ++e) {
-    d->ex[e] = e < ne ? staged(stg, pc, e, r0) : 0.f;
-    d->ey[e] = e < ne ? staged(stg, pc, ne + e, r0) : 0.f;
+    d->ex[e] = e < ne ? staged(stg, pos_s, e) : 0.f;
+    d->ey[e] = e < ne ? staged(stg, pos_s, ne + e) : 0.f;
   }
 #pragma unroll
   for (int k = 0; k < kMaxNI; ++k) {
-    d->ix[k] = k < ni ? staged(stg, pc, 2 * ne + k, r0) : 0.f;
-    d->iy[k] = k < ni ? staged(stg, pc, 2 * ne + ni + k, r0) : 0.f;
+    d->ix[k] = k < ni ? staged(stg, pos_s, 2 * ne + k) : 0.f;
+    d->iy[k] = k < ni ? staged(stg, pos_s, 2 * ne + ni + k) : 0.f;
   }
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
-    d->px[q] = staged(stg, pc, pc.na + q, r0);
-    d->py[q] = staged(stg, pc, pc.na + 3 + q, r0);
+    d->px[q] = staged(stg, pos_s, na + q);
+    d->py[q] = staged(stg, pos_s, na + 3 + q);
   }
 }
 
@@ -426,18 +427,21 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   int r0, n;
   group_rows(p.sb, p.fr, p.er, g, T, &r0, &n);
 
-  // the tile from owned row t0 into the stage, by the lanes of warp 0
+  // the tile from owned row t0 into the stage: lane j of warp 0 copies
+  // pieces j and j + 32
+  __shared__ int pos_s[2 * 32];
   auto fetch = [&](int t0) {
     const int cnt = min(n - t0, kThreads);
     const size_t r = r0 + t0;
-    if (threadIdx.x == 0) {
-      uint32_t total = 0;
-      for (int j = 0; j < pc.n; ++j) total += piece_bytes(pc.src(j, r), cnt);
-      bar_expect(bar, total);
-    }
+    uint32_t bytes = 0;
+    for (int j = threadIdx.x; j < pc.n; j += 32) bytes += piece_bytes(pc.src(j, r), cnt);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+    if (threadIdx.x == 0) bar_expect(bar, bytes);
     __syncwarp();
     for (int j = threadIdx.x; j < pc.n; j += 32) {
       const float* src = pc.src(j, r);
+      pos_s[j] = j * kPiece + mis(src);
       bulk_copy(stg + j * kPiece, src - mis(src), piece_bytes(src, cnt), bar);
     }
   };
@@ -485,17 +489,16 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   for (int t0 = 0, k = 0; t0 < n; t0 += kThreads, ++k) {
     const int t1 = min(n, t0 + kThreads);
     const int i = t0 + threadIdx.x;
-    const size_t rt = r0 + t0;
     RowData d;
     int m = -1;
     if (i < t1) {
       // a = C v (+ injected rows) and P = Ap'a
       bar_wait(bar, k & 1);
-      load_staged_row(stg, pc, rt, ne, ni, &d);
-      m = static_cast<int>(staged(stg, pc, pc.na + 6, rt));
+      load_staged_row(stg, pos_s, pc.na, ne, ni, &d);
+      m = static_cast<int>(staged(stg, pos_s, pc.na + 6));
       float ax = 0.f, ay = 0.f;
       if (io.with_v) {
-        const int c = band_col(staged(stg, pc, pc.na + 7, rt), base, W);
+        const int c = band_col(staged(stg, pos_s, pc.na + 7), base, W);
         const float* v = io.vpose + base + max(c, 0);
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e) {
@@ -517,8 +520,8 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
         }
       }
       if (io.with_a) {
-        ax += staged(stg, pc, pc.na + 8, rt);
-        ay += staged(stg, pc, pc.na + 9, rt);
+        ax += staged(stg, pos_s, pc.na + 8);
+        ay += staged(stg, pos_s, pc.na + 9);
       }
       ab_s[i] = ax;
       ab_s[T + i] = ay;
