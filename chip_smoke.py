@@ -219,16 +219,14 @@ def phase_kernels(p, layout, opts, plan, dev):
     band_in = bench_torch_fusedmv.band_inputs(band)
 
     # shared memory and resident CTAs per SM of each group kernel here, with
-    # the arguments its wrapper passes
+    # the arguments its wrapper passes (matvec and back-substitution: vpose)
     lib = _build.load()
     for which, label, smem in (
             (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(band.T)),
-            (1, "K2 schur_group_kernel<false> (matvec)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, ni, 1, 0, 0)),
-            (1, "K2 schur_group_kernel<false> (back-substitution)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, ni, 1, 1, 0)),
+            (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 1, 0)),
             (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, ni, 0, 1, 1))):
+             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 0, 1))):
         print(f"[4 kernels] {label}: {smem} bytes of dynamic shared memory at T={band.T}, "
               f"M={band.M}, W={band.W}, {lib.fusedmv_occupancy(which, smem)} resident "
               f"CTAs of 256 threads per SM")

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "fusedmv_abi_version": ([], _I),
     "fusedmv_error_string": ([_I], ctypes.c_char_p),
     "fusedmv_hpp_smem_bytes": ([_I], ctypes.c_size_t),
-    "fusedmv_schur_smem_bytes": ([_I] * 8, ctypes.c_size_t),
+    "fusedmv_schur_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "fusedmv_occupancy": ([_I, ctypes.c_size_t], _I),
     # acam apt rel imgrow sb fr er ib tie_off col_perm col_off cover_off
     # cover_ids | G M T W n_pad n_img_pad ne ni | hs de_part di_part de di

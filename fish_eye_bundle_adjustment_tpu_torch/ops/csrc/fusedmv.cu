@@ -54,8 +54,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -65,45 +63,6 @@ constexpr int kMaxNI = 8;   // IOP unknowns of the shared camera (8 lane-partial
 constexpr int kPosePairs = kMaxNE * (kMaxNE + 1) / 2;
 constexpr int kIopPairs = kMaxNI * (kMaxNI + 1) / 2;
 constexpr int kMaxStagedV = 12288;  // K2 stages vpose's band slice up to ne * W floats
-constexpr int kPiece = kThreads + 4;  // floats of a staged stream row: a tile and its misalignment
-
-// Asynchronous bulk copies into shared memory, completing on an mbarrier (as
-// in ops/csrc/prefix.cu).
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// (end of the bulk-copy helpers)
 
 // Rows the group owns inside its span: [max(fr, sb*128), min(er, sb*128 + T)).
 __device__ __forceinline__ void group_rows(const int* sb, const int* fr, const int* er,
@@ -281,36 +240,6 @@ struct RowPass2 {
   float li[kMaxNI + (kPrecond ? kIopPairs : 0)];
 };
 
-// The stream rows a K2 tile stages in shared memory, one piece each: acam rows
-// 0 .. 2(ne+ni)-1, apt rows 0 .. 5, rel, imgrow, then the two injected rows.
-// A piece is copied from the 16-byte block that holds its first row, so it
-// starts `mis` floats in.
-struct Pieces {
-  const float* acam;
-  const float* apt;
-  const float* rel;
-  const float* imgrow;
-  const float* arows;
-  size_t n_pad;
-  int na, n;  // acam rows, pieces
-  __device__ __forceinline__ const float* src(int j, size_t r) const {
-    const float* b = j < na       ? acam + j * n_pad
-                     : j < na + 6 ? apt + (j - na) * n_pad
-                     : j == na + 6 ? rel
-                     : j == na + 7 ? imgrow
-                                   : arows + (j - na - 8) * n_pad;
-    return b + r;
-  }
-};
-
-__device__ __forceinline__ int mis(const float* s) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(s) >> 2) & 3);
-}
-
-__device__ __forceinline__ uint32_t piece_bytes(const float* s, int cnt) {
-  return static_cast<uint32_t>((mis(s) + cnt) * 4 + 15) & ~15u;
-}
-
 // A row's streams, as the tile loop keeps them in registers (every index
 // known at compile time, so nothing goes to local memory).
 struct RowData {
@@ -336,31 +265,6 @@ __device__ __forceinline__ void load_row(const float* __restrict__ acam,
   for (int q = 0; q < 3; ++q) {
     d->px[q] = apt[q * n_pad + r];
     d->py[q] = apt[(3 + q) * n_pad + r];
-  }
-}
-
-// This thread's row of staged piece j; pos_s[j] = j * kPiece + the piece's
-// misalignment, written by the lane that copied it.
-__device__ __forceinline__ float staged(const float* stg, const int* pos_s, int j) {
-  return stg[pos_s[j] + threadIdx.x];
-}
-
-__device__ __forceinline__ void load_staged_row(const float* stg, const int* pos_s, int na,
-                                                int ne, int ni, RowData* d) {
-#pragma unroll
-  for (int e = 0; e < kMaxNE; ++e) {
-    d->ex[e] = e < ne ? staged(stg, pos_s, e) : 0.f;
-    d->ey[e] = e < ne ? staged(stg, pos_s, ne + e) : 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxNI; ++k) {
-    d->ix[k] = k < ni ? staged(stg, pos_s, 2 * ne + k) : 0.f;
-    d->iy[k] = k < ni ? staged(stg, pos_s, 2 * ne + ni + k) : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    d->px[q] = staged(stg, pos_s, na + q);
-    d->py[q] = staged(stg, pos_s, na + 3 + q);
   }
 }
 
@@ -395,9 +299,7 @@ __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const
 }
 
 // One CTA per group.  The owned rows are taken in tiles of kThreads, one row
-// a thread.  Warp 0 stages each tile's stream rows in shared memory by bulk
-// copies, the next tile's while this one's ties are summed; each thread moves
-// its row into registers: a = C v and
+// a thread, each row's streams loaded once into registers: a = C v and
 // P = Ap'a per row, then the tie runs' sums over the tile (carried across
 // tiles in t_s), and, for every row whose tie ends inside the tile, the
 // second half at once.  Rows whose tie runs on past the tile are finished
@@ -406,15 +308,10 @@ template <bool kPrecond>
 __global__ void __launch_bounds__(kThreads, kPrecond ? 2 : 3)
 schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, const Plan p,
                    const SchurIO io) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int T = p.T, M = p.M, W = p.W, ne = p.ne, ni = p.ni;
-  const size_t n_pad = p.n_pad;
-  const Pieces pc{acam, apt, p.rel, p.imgrow, io.arows, n_pad, 2 * (ne + ni),
-                  2 * (ne + ni) + 8 + (io.with_a ? 2 : 0)};
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // the stage's mbarrier (16 bytes)
-  float* stg = smem + 4;                             // (pieces, kPiece) the tile's stream rows
-  float* ab_s = stg + pc.n * kPiece;                 // (2, T) a, then b, of each row
+  float* ab_s = smem;                                // (2, T) a, then b, of each row
   float* p_s = ab_s + 2 * T;                         // (3, kThreads) P of the tile's rows
   float* t_s = p_s + 3 * kThreads;                   // (3, M) running tie sums
   float* y_s = t_s + 3 * M;                          // (3, M) Hpp^-1 t
@@ -424,32 +321,9 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   float* v_s = hpi_s + 9 * M;                        // (ne, W) the band's slice of vpose
   int* toff_s = reinterpret_cast<int*>(v_s + (stage_v ? ne * W : 0));  // (M + 1)
   short* perm_s = reinterpret_cast<short*>(toff_s + M + 1);          // (T) col_perm
+  const size_t n_pad = p.n_pad;
   int r0, n;
   group_rows(p.sb, p.fr, p.er, g, T, &r0, &n);
-
-  // the tile from owned row t0 into the stage: lane j of warp 0 copies
-  // pieces j and j + 32
-  __shared__ int pos_s[2 * 32];
-  auto fetch = [&](int t0) {
-    const int cnt = min(n - t0, kThreads);
-    const size_t r = r0 + t0;
-    uint32_t bytes = 0;
-    for (int j = threadIdx.x; j < pc.n; j += 32) bytes += piece_bytes(pc.src(j, r), cnt);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
-    if (threadIdx.x == 0) bar_expect(bar, bytes);
-    __syncwarp();
-    for (int j = threadIdx.x; j < pc.n; j += 32) {
-      const float* src = pc.src(j, r);
-      pos_s[j] = j * kPiece + mis(src);
-      bulk_copy(stg + j * kPiece, src - mis(src), piece_bytes(src, cnt), bar);
-    }
-  };
-  if (threadIdx.x < 32) {
-    if (threadIdx.x == 0) bar_init(bar);
-    __syncwarp();
-    if (n > 0) fetch(0);
-  }
   const int base = p.ib[g] * 128;
   const size_t col0 = static_cast<size_t>(g) * M;
   const size_t n_cols = static_cast<size_t>(p.G) * M;
@@ -486,19 +360,19 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   for (int k = 0; k < kMaxNI + (kPrecond ? kIopPairs : 0); ++k) lt.li[k] = 0.f;
   __syncthreads();
 
-  for (int t0 = 0, k = 0; t0 < n; t0 += kThreads, ++k) {
+  for (int t0 = 0; t0 < n; t0 += kThreads) {
     const int t1 = min(n, t0 + kThreads);
     const int i = t0 + threadIdx.x;
     RowData d;
     int m = -1;
     if (i < t1) {
       // a = C v (+ injected rows) and P = Ap'a
-      bar_wait(bar, k & 1);
-      load_staged_row(stg, pos_s, pc.na, ne, ni, &d);
-      m = static_cast<int>(staged(stg, pos_s, pc.na + 6));
+      const size_t r = r0 + i;
+      load_row(acam, apt, n_pad, r, ne, ni, &d);
+      m = static_cast<int>(p.rel[r]);
       float ax = 0.f, ay = 0.f;
       if (io.with_v) {
-        const int c = band_col(staged(stg, pos_s, pc.na + 7), base, W);
+        const int c = band_col(p.imgrow[r], base, W);
         const float* v = io.vpose + base + max(c, 0);
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e) {
@@ -520,8 +394,8 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
         }
       }
       if (io.with_a) {
-        ax += staged(stg, pos_s, pc.na + 8);
-        ay += staged(stg, pos_s, pc.na + 9);
+        ax += io.arows[r];
+        ay += io.arows[n_pad + r];
       }
       ab_s[i] = ax;
       ab_s[T + i] = ay;
@@ -529,11 +403,6 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
       for (int q = 0; q < 3; ++q) p_s[q * kThreads + threadIdx.x] = d.px[q] * ax + d.py[q] * ay;
     }
     __syncthreads();
-    // every thread has its row: the next tile's copy flies during this one's ties
-    if (threadIdx.x < 32 && t1 < n) {
-      fence_async();
-      fetch(t1);
-    }
 
     // tie runs: add the tile's part of each run in row order; finish the
     // ties whose run ends in this tile
@@ -843,12 +712,10 @@ size_t fusedmv_hpp_smem_bytes(int T) {
   return 8 * kLanes * sizeof(float) + static_cast<size_t>(T) * sizeof(short);
 }
 
-size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int ni, int with_v, int with_a,
-                                int with_precond) {
+size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond) {
   const size_t lane_vals = kMaxNI + (with_precond ? kIopPairs : 0);
   const size_t v = (with_v && ne * W <= kMaxStagedV) ? static_cast<size_t>(ne) * W : 0;
-  const size_t stage = 4 + static_cast<size_t>(2 * (ne + ni) + 8 + (with_a ? 2 : 0)) * kPiece;
-  return (stage + 2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
+  return (2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
           lane_vals * kLanes + v) * sizeof(float) +
          (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
 }
@@ -901,7 +768,7 @@ int fusedmv_schur_apply(const float* acam, const float* apt, const float* rel,
                            cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni);
   const SchurIO io{arows,  vpose,     vi,       hpi,   with_v,   with_a,
                    p_rows, i_rows,    pose_part, iop_part, out_y, p21_part, i55_part};
-  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, ni, with_v, with_a, with_precond);
+  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond);
   const void* fn = with_precond ? reinterpret_cast<const void*>(schur_group_kernel<true>)
                                 : reinterpret_cast<const void*>(schur_group_kernel<false>);
   int err = set_smem(fn, smem);
