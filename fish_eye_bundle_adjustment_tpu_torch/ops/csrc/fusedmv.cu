@@ -24,17 +24,21 @@
 //   K2 takes the group's rows in tiles of 256, one row a thread, the row's
 //      streams loaded once into registers (coalesced): a = C v and P = Ap'a
 //      per row; the tile's part of each tie run summed by the tie's thread
-//      (running sums in shared memory); then b = a - Ap y, the IOP lane terms
-//      and the pose terms of C'b for each row whose tie ended in the tile.  Rows whose tie
-//      runs on into a later tile are finished after the last tile, from a
-//      second read of their streams.  Then one thread per band column sums
-//      the column's run of pose terms.  What every tile would otherwise fetch
-//      at random -- Hpp^-1 of the group's ties, the band's slice of the camera
-//      vector, col_perm -- is put in shared memory once per group, because
-//      under the full card's load each dependent round to device memory costs
-//      microseconds.
-//   K1 reads each row once in a row pass (IOP lane terms, pose diagonal
-//      terms), then sums the tie runs of apt's products and the column runs.
+//      (running sums in shared memory); then b = a - Ap y and the IOP lane
+//      terms for each row whose tie ended in the tile, b kept in shared
+//      memory.  Rows whose tie runs on into a later tile are finished after
+//      the last tile, from a second read of their streams.  Then one thread
+//      per band column sums the pose terms of C'b over the column's run.
+//      What every tile would otherwise fetch at random -- Hpp^-1 of the
+//      group's ties, the band's slice of the camera vector, col_perm -- is put
+//      in shared memory once per group, because under the full card's load
+//      each dependent round to device memory costs microseconds.  Tiles staged
+//      in shared memory by bulk copies (one cp.async.bulk per stream row, the
+//      next tile's in flight during this one's tie runs) measured slower on
+//      the H100 than these register loads.
+//   K1 reads each row's IOP columns once in a row pass (IOP lane terms), then
+//      sums the tie runs of apt's products and the pose diagonal terms over the
+//      column runs.
 //   The column runs of both read each in-band row's pose columns a second time,
 //      by col_perm, from L2.  Shared memory per CTA is 10 bytes a span row (K2;
 //      2 in K1) plus ~60 a tie slot, so T up to the band plan's 16384 fits.
