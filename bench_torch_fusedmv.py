@@ -39,7 +39,9 @@ MODES = ("matvec", "rhs_precond", "backsub")
 
 def kernel_cases(fusedmv, band, fac, ne, ni, inputs):
     """name -> (kind, kernel call, plain call, extra input tensors) for K1
-    and the three K2 modes on one linearization."""
+    and the three K2 modes on one linearization, at the wrappers' default
+    precision ("bf16x2"), and the K2 matvec at "bf16", the solver's CG
+    matvec at u <= 600,000."""
     streams = (fac.acam_t, fac.apt_t)
     cases = {
         "fused_hpp_pass": (
@@ -51,6 +53,7 @@ def kernel_cases(fusedmv, band, fac, ne, ni, inputs):
     }
     modes = {
         "matvec": dict(vpose=inputs["vpose"], vi=inputs["vi"]),
+        "matvec_bf16": dict(vpose=inputs["vpose"], vi=inputs["vi"], precision="bf16"),
         "rhs_precond": dict(a_rows=inputs["a_rows"], with_precond=True),
         "backsub": dict(vpose=inputs["vpose"], vi=inputs["vi"], a_rows=inputs["a_rows"]),
     }
@@ -76,9 +79,11 @@ def kernel_flops(n_obs, n_tie, ne, ni):
     per IOP pair."""
     rows, nt = n_obs, n_tie
     npair, ipair = ne * (ne + 1) // 2, ni * (ni + 1) // 2
+    matvec = rows * (24 + 8 * (ne + ni)) + 18 * nt
     return {
         "fused_hpp_pass": rows * (24 + 4 * ne + 4 * ni),
-        "fused_schur_apply/matvec": rows * (24 + 8 * (ne + ni)) + 18 * nt,
+        "fused_schur_apply/matvec": matvec,
+        "fused_schur_apply/matvec_bf16": matvec,
         "fused_schur_apply/rhs_precond": rows * (26 + 4 * (ne + ni) + 24 * ne
                                                  + 10 * npair + 4 * ipair) + 18 * nt,
         "fused_schur_apply/backsub": rows * (26 + 8 * (ne + ni)) + 18 * nt,

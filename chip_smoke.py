@@ -20,7 +20,9 @@ of JAX.  Phases:
   3. block         synth.make_block at the bench size, its band plan, and
                    the host time of the kernels' index (BandArrays.from_plan)
   4. kernels       K1 and K2 (three modes) against their plain versions on
-                   one linearization: relative norm error <= 1e-5 on every
+                   one linearization, at the JAX package's default operand
+                   precisions ("bf16x2"; the CG matvec also at "bf16"):
+                   relative norm error <= 1e-5 on every
                    output the solver reads, bitwise repeatable, median
                    times of kernel and plain version (CUDA events), the
                    bound of each kernel and mode and the kernel's multiple
@@ -28,12 +30,17 @@ of JAX.  Phases:
                    reduce (torch.profiler), the bytes of the kernels' host
                    index (beside the bound, not in it); each group kernel's
                    dynamic shared memory and resident CTAs per SM at these
-                   shapes, as its wrapper launches it
+                   shapes, as its wrapper launches it, and at the band
+                   plan's caps (T = 16384, W = 2048, M = 128)
   5. reference     a 12-image block solved on the card and on the CPU
                    (plain versions): x within rtol=3e-5, atol=3e-4
   6. main path     solve_schur(..., SchurOptions(dtype=float32,
                    cg_maxiter=40), compute_covariance=False,
-                   device="cuda") for 5 GN iterations; launch counts
+                   device="cuda") for 5 GN iterations at the default
+                   precisions; sigma0^2, CG counts, iteration walls, host
+                   reads per CG call (one per block of 8 masked iterations
+                   and one that stops), and the launch counts K1 = steps,
+                   K2 = 2 * steps + the matvecs CG ran
   7. segment       K4 (chunk_prefix) against its plain version at the
                    block's stream length, D in {3, 6, 21}, float32 and
                    float64: relative norm error <= 1e-5 / 1e-12, bitwise
@@ -46,9 +53,10 @@ of JAX.  Phases:
   9. unfused main  solve_schur(problem, SchurOptions(cg_maxiter=40),
                    compute_covariance=False, device="cuda") in float64 for
                    3 GN iterations (depth cut from a converged solve);
-                   the K4 launch count against 6 * steps + 2 * sum(CG),
-                   and per width: D = 3 sum(CG) + 2 * steps, D = 6
-                   sum(CG) + 3 * steps, D = 21 steps
+                   the K4 launch count against 6 * steps + 2 * matvecs
+                   (the matvecs CG ran, masked iterations included), and
+                   per width: D = 3 matvecs + 2 * steps, D = 6 matvecs +
+                   3 * steps, D = 21 steps
  10. streamseg     K3 (the span segment-sum kernel) at bench_streamseg.py's
                    defaults: sorted_segment_sum_streaming driven once
                    (launch counts), then the kernel against its plain
@@ -83,6 +91,7 @@ phases 10-11; `replaces` lists the pallas_call sites each stands for.
 """
 
 import dataclasses
+import inspect
 import json
 import re
 import subprocess
@@ -99,6 +108,7 @@ import bench_torch_streamseg
 from fish_eye_bundle_adjustment_tpu_torch.ops import (
     _build, fusedmv, prefix, probes, segment, streamseg,
 )
+from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import build_band_plan
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
@@ -218,18 +228,26 @@ def phase_kernels(p, layout, opts, plan, dev):
     flops = bench_torch_fusedmv.kernel_flops(p.n_obs, plan.n_tie, ne, ni)
     band_in = bench_torch_fusedmv.band_inputs(band)
 
-    # shared memory and resident CTAs per SM of each group kernel here, with
-    # the arguments its wrapper passes (matvec and back-substitution: vpose)
+    # shared memory and resident CTAs per SM of each group kernel here and at
+    # the band plan's caps, with the arguments its wrapper passes (matvec and
+    # back-substitution: vpose)
     lib = _build.load()
-    for which, label, smem in (
-            (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(band.T)),
-            (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 1, 0)),
-            (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
-             lib.fusedmv_schur_smem_bytes(band.T, band.M, band.W, ne, 0, 1))):
-        print(f"[4 kernels] {label}: {smem} bytes of dynamic shared memory at T={band.T}, "
-              f"M={band.M}, W={band.W}, {lib.fusedmv_occupancy(which, smem)} resident "
-              f"CTAs of 256 threads per SM")
+    caps = inspect.signature(build_band_plan).parameters
+    cap_T, cap_W = caps["max_T"].default, caps["max_W"].default
+    for T, M, W, where in ((band.T, band.M, band.W, "here"),
+                           (cap_T, caps["M"].default, cap_W, "at the caps")):
+        for which, label, smem in (
+                (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(T)),
+                (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
+                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 1, 0)),
+                (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
+                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 0, 1))):
+            occ = lib.fusedmv_occupancy(which, smem)
+            print(f"[4 kernels] {label} {where}: {smem} bytes of dynamic shared memory "
+                  f"at T={T}, M={M}, W={W}, ne={ne}, {occ} resident CTAs of 256 threads "
+                  f"per SM")
+            if not (smem <= _build.SMEM_LIMIT and occ >= 1):
+                raise RuntimeError(f"[4 kernels] FAIL: {label} does not fit {where}")
     idx_b = bench_torch_fusedmv.index_bytes(band)
     print(f"[4 kernels] the kernels' host index: {idx_b} bytes on the card, read beside "
           f"the function's inputs and not counted in its bound "
@@ -305,6 +323,7 @@ def phase_main_path(p, layout, plan, dev):
     torch.cuda.reset_peak_memory_stats()
     fusedmv.reset_counts()
     prefix.reset_counts()
+    schur.reset_cg_counts()
     t0 = time.perf_counter()
     res = schur.solve_schur(problem, opts, compute_covariance=False,
                             device=dev, progress_fn=progress)
@@ -313,8 +332,12 @@ def phase_main_path(p, layout, plan, dev):
     counts = dict(fusedmv.kernel_launches)
     plain = dict(fusedmv.plain_calls)
     k4 = prefix.kernel_launches["chunk_prefix"] + prefix.plain_calls["chunk_prefix"]
+    cgc = dict(schur.cg_counts)
 
     cg = res.cg_iterations
+    kern = schur.SchurKernel(layout, opts)
+    print(f"[6 main] precisions: fused_precision={opts.fused_precision} "
+          f"CG matvec {kern.mv_precision} (u={layout.u})")
     print(f"[6 main] stopped_on={res.stopped_on} iterations={res.iterations} "
           f"steps={len(cg)} cg per step={cg} sigma0^2={res.sigma02:.6f} "
           f"rms={res.rms:.4f} wall={wall:.2f} s "
@@ -328,7 +351,6 @@ def phase_main_path(p, layout, plan, dev):
     if res.iterations != 5:
         raise RuntimeError(f"[6 main] FAIL: {res.iterations} iterations, expected 5")
     # weighted SSR, true residuals, before and after
-    kern = schur.SchurKernel(layout, opts)
     obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)
 
     def cost(x):
@@ -340,10 +362,23 @@ def phase_main_path(p, layout, plan, dev):
     if not (np.isfinite(c1) and c1 < c0):
         raise RuntimeError("[6 main] FAIL: the weighted SSR did not fall")
     # one K1 pass per linearization (= GN step, rejected trials included);
-    # K2: rhs + preconditioner, one per CG iteration, back-substitution
-    want_k1, want_k2 = len(cg), 2 * len(cg) + sum(cg)
+    # K2: rhs + preconditioner, one per CG matvec, back-substitution.  CG
+    # runs masked blocks of 8 iterations (cg_maxiter = 40 > 16), one host
+    # read before each block and one that stops: 8 matvecs per read but the
+    # last of each call
+    steps = len(cg)
+    matvecs = 8 * (cgc["host_reads"] - cgc["calls"])
+    print(f"[6 main] CG: {cgc['calls']} calls, {cgc['host_reads']} host reads "
+          f"({cgc['host_reads'] / max(cgc['calls'], 1):.2f} per call, at most "
+          f"{-(-opts.cg_maxiter // 8) + 1}), {cgc['matvecs']} matvecs run for "
+          f"{sum(cg)} iterations taken")
+    if not (cgc["calls"] == steps and cgc["matvecs"] == matvecs
+            and sum(cg) <= matvecs <= sum(cg) + 8 * steps
+            and cgc["host_reads"] <= steps * (-(-opts.cg_maxiter // 8) + 1)):
+        raise RuntimeError(f"[6 main] FAIL: CG counts {cgc} for {cg}")
+    want_k1, want_k2 = steps, 2 * steps + matvecs
     print(f"[6 main] expected K1 = steps = {want_k1}, "
-          f"K2 = 2 * steps + sum(cg) = {want_k2}")
+          f"K2 = 2 * steps + matvecs = {want_k2}")
     if counts != {"fused_hpp_pass": want_k1, "fused_schur_apply": want_k2}:
         raise RuntimeError(f"[6 main] FAIL: launch counts {counts}")
     if any(plain.values()):
@@ -452,12 +487,14 @@ def phase_unfused_main_path(p, layout, dev):
     torch.cuda.reset_peak_memory_stats()
     fusedmv.reset_counts()
     prefix.reset_counts()
+    schur.reset_cg_counts()
     t0 = time.perf_counter()
     res = schur.solve_schur(problem, opts, compute_covariance=False,
                             device=dev, progress_fn=progress)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k4 = prefix.kernel_launches["chunk_prefix"]
+    cgc = dict(schur.cg_counts)
     by_width = dict(sorted(prefix.kernel_launches_by_width.items()))
     plain = prefix.plain_calls["chunk_prefix"]
     fused = sum(fusedmv.kernel_launches.values()) + sum(fusedmv.plain_calls.values())
@@ -467,13 +504,21 @@ def phase_unfused_main_path(p, layout, dev):
           f"steps={len(cg)} cg per step={cg} sigma0^2={res.sigma02:.9f} "
           f"rms={res.rms:.6f} wall={wall:.2f} s "
           f"peak mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    want = 6 * len(cg) + 2 * sum(cg)
+    # the matvecs CG ran: masked blocks of 8 (cg_maxiter = 40), one host
+    # read before each block and one that stops
+    mv = 8 * (cgc["host_reads"] - cgc["calls"])
+    print(f"[9 unfused] CG: {cgc['calls']} calls, {cgc['host_reads']} host reads, "
+          f"{cgc['matvecs']} matvecs run for {sum(cg)} iterations taken")
+    if not (cgc["calls"] == len(cg) and cgc["matvecs"] == mv
+            and sum(cg) <= mv <= sum(cg) + 8 * len(cg)):
+        raise RuntimeError(f"[9 unfused] FAIL: CG counts {cgc} for {cg}")
+    want = 6 * len(cg) + 2 * mv
     # D = 3: the tie sums of each matvec, the reduced rhs and back-substitution;
     # D = 6: the image sums of each matvec, the rhs and linearize's two; D = 21:
     # the pose preconditioner
-    want_width = {3: sum(cg) + 2 * len(cg), 6: sum(cg) + 3 * len(cg), 21: len(cg)}
+    want_width = {3: mv + 2 * len(cg), 6: mv + 3 * len(cg), 21: len(cg)}
     print(f"[9 unfused] launches: K4 chunk_prefix={k4}, expected 6 * steps + "
-          f"2 * sum(cg) = {want} (linearize 2, reduced rhs 2, pose preconditioner "
+          f"2 * matvecs = {want} (linearize 2, reduced rhs 2, pose preconditioner "
           f"1, back-substitution 1, 2 per CG matvec); by width D: {by_width}, "
           f"expected {want_width}; plain versions called {plain}; fused kernels {fused}")
     if not (np.isfinite(res.x).all() and np.isfinite(res.v).all()
@@ -585,8 +630,9 @@ def main():
     t0 = time.perf_counter()
     measured = phase_streamseg(dev) + phase_probes(dev)
     print(f"[11 probes] phases 10-11 took {time.perf_counter() - t0:.1f} s")
-    # K2 is timed in its hot mode (one launch per CG iteration), K4 at the
-    # width and type of the unfused path's CG image sum (float64, D = 6);
+    # K2 is timed in its hot mode (one launch per CG iteration, at the main
+    # path's "bf16"), K4 at the width and type of the unfused path's CG image
+    # sum (float64, D = 6);
     # each error is the largest over the kernel's modes or widths
     timings["chunk_prefix"] = seg["float64 D=6"]
     errs = {
@@ -597,7 +643,7 @@ def main():
     }
     table = []
     for name in ("fused_hpp_pass", "fused_schur_apply", "chunk_prefix"):
-        t = timings[name if name in timings else f"{name}/matvec"]
+        t = timings[name if name in timings else f"{name}/matvec_bf16"]
         table.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=[REPLACES[name]],
             launches=counts[name], max_abs_err=max(errs[name]), ms=t["ms"],

@@ -28,6 +28,13 @@ Conventions reproduced from the reference:
    All non-pinhole g have the removable singularity g -> 1/W as R -> 0,
    handled with a double-where so neither values nor forward-mode
    derivatives produce NaN on-axis.
+
+Constants are Python ints, never floats: jacfwd promotes a tangent to
+float64 where a 0-d tensor meets a Python float (torch 2.11 and 2.13:
+``2.0 * t`` for a float32 0-d ``t``), while an int keeps the tensor's
+dtype.  So a float32 residual gets float32 tangents, as JAX's jacfwd
+does, and ``x / 2``, ``1 / W`` give the same bits as ``0.5 * x``,
+``1.0 / W`` in either dtype.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ def _safe_axis_factor(R, W, fn):
     """fn(R, W)/R with the R->0 limit 1/W, autodiff-safe (double-where)."""
     near = R < _R_EPS
     R_safe = torch.where(near, torch.ones_like(R), R)
-    return torch.where(near, 1.0 / W, fn(R_safe, W) / R_safe)
+    return torch.where(near, 1 / W, fn(R_safe, W) / R_safe)
 
 
 def projection_factor(model_id: int, R, W):
@@ -88,16 +95,16 @@ def projection_factor(model_id: int, R, W):
     if model_id == MODEL_IDS["fisheye"]:
         return _safe_axis_factor(R, W, lambda R, W: torch.atan(R / W))
     if model_id == MODEL_IDS["pinhole"]:
-        return 1.0 / W
+        return 1 / W
     if model_id == MODEL_IDS["equisolid"]:
         return _safe_axis_factor(
-            R, W, lambda R, W: 2.0 * torch.sin(0.5 * torch.atan(R / W))
+            R, W, lambda R, W: 2 * torch.sin(torch.atan(R / W) / 2)
         )
     if model_id == MODEL_IDS["orthographic"]:
         return _safe_axis_factor(R, W, lambda R, W: torch.sin(torch.atan(R / W)))
     if model_id == MODEL_IDS["stereographic"]:
         return _safe_axis_factor(
-            R, W, lambda R, W: 2.0 * torch.tan(0.5 * torch.atan(R / W))
+            R, W, lambda R, W: 2 * torch.tan(torch.atan(R / W) / 2)
         )
     raise ValueError(f"unknown model id {model_id}")
 
@@ -119,8 +126,8 @@ def distortion(iop, obs_xy, nk: int):
     for j in range(nk - 1, -1, -1):
         dr = dr * r2 + K[j]
     dr = dr * r2
-    dec_x = P[0] * (yb * yb + 3.0 * xb * xb) + 2.0 * P[1] * xb * yb
-    dec_y = P[1] * (xb * xb + 3.0 * yb * yb) + 2.0 * P[0] * xb * yb
+    dec_x = P[0] * (yb * yb + 3 * xb * xb) + 2 * P[1] * xb * yb
+    dec_y = P[1] * (xb * xb + 3 * yb * yb) + 2 * P[0] * xb * yb
     return dr * xb + dec_x, dr * yb + dec_y
 
 
@@ -153,12 +160,7 @@ def obs_jacobian_blocks(eop, iop, xyz, obs_xy, y_dir, model_id: int, nk: int):
     """
     fn = lambda e, i, x: residual_obs(e, i, x, obs_xy, y_dir, model_id, nk)
     r = fn(eop, iop, xyz)
-    J = torch.func.jacfwd(fn, argnums=(0, 1, 2))(eop, iop, xyz)
-    # jacfwd promotes a tangent to float64 where a 0-d tensor meets a
-    # Python float (torch 2.11 and 2.13: `2.0 * t` for a float32 0-d t),
-    # so under vmap every tangent of the pass is float64; the blocks come
-    # back in the residual's dtype
-    J_eop, J_iop, J_pt = (j.to(r.dtype) for j in J)
+    J_eop, J_iop, J_pt = torch.func.jacfwd(fn, argnums=(0, 1, 2))(eop, iop, xyz)
     return r, J_eop, J_iop, J_pt
 
 

@@ -41,8 +41,17 @@
 //      column runs.
 //   The column runs of both read each in-band row's pose columns a second time,
 //      by col_perm, from L2.  Shared memory per CTA is 10 bytes a span row (K2;
-//      2 in K1) plus ~60 a tie slot, so T up to the band plan's 16384 fits.
+//      2 in K1) plus ~60 a tie slot, so T up to the band plan's 16384 fits, and
+//      the band's camera vector (ne * W floats, up to kMaxStagedV) beside it
+//      while that fits too: at the plan's caps (T = 16384, W = 2048, M = 128,
+//      ne = 6) the matvec takes 228,356 of the 232,448 bytes a CTA may have.
+//      Past that the camera vector is read from global memory instead.
 
+// K2's column runs are unrolled (4 rows; 2 with the preconditioner's larger
+// body) so that the loads of several rows are in flight at once: a run is summed
+// by one thread, and each row's loads would otherwise wait a full round to
+// memory.
+//
 // Determinism: CUDA blocks run in no set order, so each CTA writes its own
 // partials -- (G, rows, W) for the image band, (G, rows, 128) for lane partials --
 // and a second kernel sums them: each image-band output over only the groups whose
@@ -52,10 +61,16 @@
 // repeats bit for bit; the deferred LM accept/reject of the solver compares cost
 // differences against a tiny slack and needs that.
 //
-// Precision: everything is f32 with f32 accumulation.  The TPU kernels split
-// operands into bf16 hi/lo only because the MXU truncates f32; there is no such
-// split here.
+// Precision: where the TPU kernels contract a one-hot mask with an operand on
+// the MXU, the JAX package's _dot first rounds that operand to bf16 ("bf16") or
+// to a bf16 hi + lo pair ("bf16x2"); these kernels round the same values the same
+// way (round_operand) and sum in f32.  The arithmetic before each rounding is
+// written with __fmul_rn / __fadd_rn, which the compiler never contracts into a
+// fused multiply-add, in the order of the plain version in ops/fusedmv.py: both
+// then round bit-identical values, and a value near a bf16 rounding boundary goes
+// the same way in both.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,6 +82,23 @@ constexpr int kMaxNI = 8;   // IOP unknowns of the shared camera (8 lane-partial
 constexpr int kPosePairs = kMaxNE * (kMaxNE + 1) / 2;
 constexpr int kIopPairs = kMaxNI * (kMaxNI + 1) / 2;
 constexpr int kMaxStagedV = 12288;  // K2 stages vpose's band slice up to ne * W floats
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory one H100 block may use
+
+// Products and sums rounded one at a time (never fused), for the values that
+// round_operand rounds.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dot2(float a, float b, float c, float d) {
+  return add(mul(a, b), mul(c, d));
+}
+
+// The JAX package's _dot operand: bf16 (nearest even), or for bf16x2 the hi/lo
+// pair hi = bf16(x), lo = bf16(x - hi), whose f32 sum is exact.
+__device__ __forceinline__ float round_operand(float x, int bf16x2) {
+  const float hi = __bfloat162float(__float2bfloat16_rn(x));
+  return bf16x2 ? hi + __bfloat162float(__float2bfloat16_rn(x - hi)) : hi;
+}
 
 // Rows the group owns inside its span: [max(fr, sb*128), min(er, sb*128 + T)).
 __device__ __forceinline__ void group_rows(const int* sb, const int* fr, const int* er,
@@ -104,6 +136,7 @@ struct Plan {
   const int* cover_off;   // (n_img_pad/128 + 1)
   const int* cover_ids;   // (G * W/128)
   int G, M, T, W, n_pad, n_img_pad, ne, ni;
+  int bf16x2;             // operand rounding: 0 bf16, 1 bf16 hi + lo
 };
 
 // Threads t and t + 128 take rows of the same lane (r % 128): t + 128 leaves its
@@ -177,7 +210,8 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
 #pragma unroll
       for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int b = a; b < 3; ++b) h[k++] += px[a] * px[b] + py[a] * py[b];
+        for (int b = a; b < 3; ++b)
+          h[k++] += round_operand(dot2(px[a], px[b], py[a], py[b]), p.bf16x2);
     }
     const size_t col = static_cast<size_t>(g) * M + m;
 #pragma unroll
@@ -210,7 +244,7 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
         if (e < ne) {
           const float x = acam[e * n_pad + r];
           const float y = acam[(ne + e) * n_pad + r];
-          d[e] += x * x + y * y;
+          d[e] += round_operand(dot2(x, x, y, y), p.bf16x2);
         }
       }
     }
@@ -230,6 +264,7 @@ struct SchurIO {
   const float* vi;     // (128), or null
   const float* hpi;    // (16, G*M) Hpp^-1 per tie slot, rows 3p+q
   int with_v, with_a, p_rows, i_rows;
+  int stage_v;         // vpose's band slice staged in shared memory
   float* pose_part;  // (G, 8, W)
   float* iop_part;   // (G, 8, 128)
   float* out_y;      // (8, G*M)
@@ -283,9 +318,9 @@ __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const
   if (m >= 0 && m < M) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float y = y_s[q * M + m];
-      bx -= d.px[q] * y;
-      by -= d.py[q] * y;
+      const float y = round_operand(y_s[q * M + m], p.bf16x2);
+      bx = sub(bx, mul(d.px[q], y));
+      by = sub(by, mul(d.py[q], y));
     }
   }
 #pragma unroll
@@ -321,7 +356,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   float* y_s = t_s + 3 * M;                          // (3, M) Hpp^-1 t
   float* lane_s = y_s + 3 * M;                       // (lane values, 128)
   float* hpi_s = lane_s + (kMaxNI + (kPrecond ? kIopPairs : 0)) * kLanes;  // (9, M)
-  const bool stage_v = io.with_v && ne * W <= kMaxStagedV;
+  const bool stage_v = io.stage_v;
   float* v_s = hpi_s + 9 * M;                        // (ne, W) the band's slice of vpose
   int* toff_s = reinterpret_cast<int*>(v_s + (stage_v ? ne * W : 0));  // (M + 1)
   short* perm_s = reinterpret_cast<short*>(toff_s + M + 1);          // (T) col_perm
@@ -351,7 +386,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
     for (int q = 0; q < 3; ++q) {
       float y = 0.f;
 #pragma unroll
-      for (int s = 0; s < 3; ++s) y += hpi_s[(3 * q + s) * M + m] * t_s[s * M + m];
+      for (int s = 0; s < 3; ++s) y = add(y, mul(hpi_s[(3 * q + s) * M + m], t_s[s * M + m]));
       y_s[q * M + m] = y;
       io.out_y[q * n_cols + col] = y;
     }
@@ -381,30 +416,33 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e) {
           if (e < ne) {
-            const float ve = c < 0 ? 0.f
-                             : stage_v ? v_s[e * W + c]
-                                       : v[static_cast<size_t>(e) * p.n_img_pad];
-            ax += d.ex[e] * ve;
-            ay += d.ey[e] * ve;
+            const float ve =
+                c < 0 ? 0.f
+                      : round_operand(stage_v ? v_s[e * W + c]
+                                              : v[static_cast<size_t>(e) * p.n_img_pad],
+                                      p.bf16x2);
+            ax = add(ax, mul(d.ex[e], ve));
+            ay = add(ay, mul(d.ey[e], ve));
           }
         }
 #pragma unroll
         for (int k = 0; k < kMaxNI; ++k) {
           if (k < ni) {
             const float vk = io.vi[k];
-            ax += vk * d.ix[k];
-            ay += vk * d.iy[k];
+            ax = add(ax, mul(vk, d.ix[k]));
+            ay = add(ay, mul(vk, d.iy[k]));
           }
         }
       }
       if (io.with_a) {
-        ax += io.arows[r];
-        ay += io.arows[n_pad + r];
+        ax = add(ax, io.arows[r]);
+        ay = add(ay, io.arows[n_pad + r]);
       }
       ab_s[i] = ax;
       ab_s[T + i] = ay;
 #pragma unroll
-      for (int q = 0; q < 3; ++q) p_s[q * kThreads + threadIdx.x] = d.px[q] * ax + d.py[q] * ay;
+      for (int q = 0; q < 3; ++q)
+        p_s[q * kThreads + threadIdx.x] = round_operand(dot2(d.px[q], ax, d.py[q], ay), p.bf16x2);
     }
     __syncthreads();
 
@@ -476,6 +514,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
 #pragma unroll
     for (int k = 0; k < (kPrecond ? kPosePairs : 1); ++k) sym[k] = 0.f;
     const int end = coff[c + 1];
+#pragma unroll(kPrecond ? 2 : 4)
     for (int k = coff[c]; k < end; ++k) {
       const int i = perm_s[k];
       const size_t r = r0 + i;
@@ -485,7 +524,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
       for (int e = 0; e < kMaxNE; ++e) {
         ex[e] = e < ne ? acam[e * n_pad + r] : 0.f;
         ey[e] = e < ne ? acam[(ne + e) * n_pad + r] : 0.f;
-        acc[e] += ex[e] * bx + ey[e] * by;
+        acc[e] += round_operand(dot2(ex[e], bx, ey[e], by), p.bf16x2);
       }
       if (kPrecond) {
         // diag(S) block of the row's image: Hcc - (Ae'Ap) Hpp^-1 (Ap'Ae)
@@ -493,7 +532,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
         const bool tie = m >= 0 && m < M;
         float H[9], px[3], py[3];
 #pragma unroll
-        for (int q = 0; q < 9; ++q) H[q] = tie ? hpi_s[q * M + m] : 0.f;
+        for (int q = 0; q < 9; ++q) H[q] = tie ? round_operand(hpi_s[q * M + m], p.bf16x2) : 0.f;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           px[q] = apt[q * n_pad + r];
@@ -503,19 +542,19 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e)
 #pragma unroll
-          for (int q = 0; q < 3; ++q) B[e][q] = ex[e] * px[q] + ey[e] * py[q];
+          for (int q = 0; q < 3; ++q) B[e][q] = dot2(ex[e], px[q], ey[e], py[q]);
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e)
 #pragma unroll
           for (int q = 0; q < 3; ++q)
-            C[e][q] = B[e][0] * H[q] + B[e][1] * H[3 + q] + B[e][2] * H[6 + q];
+            C[e][q] = add(dot2(B[e][0], H[q], B[e][1], H[3 + q]), mul(B[e][2], H[6 + q]));
         int k2 = 0;
 #pragma unroll
         for (int e = 0; e < kMaxNE; ++e) {
 #pragma unroll
           for (int f = e; f < kMaxNE; ++f, ++k2) {
-            const float corr = C[e][0] * B[f][0] + C[e][1] * B[f][1] + C[e][2] * B[f][2];
-            sym[k2] += (ex[e] * ex[f] + ey[e] * ey[f]) - corr;
+            const float corr = add(dot2(C[e][0], B[f][0], C[e][1], B[f][1]), mul(C[e][2], B[f][2]));
+            sym[k2] += round_operand(sub(dot2(ex[e], ex[f], ey[e], ey[f]), corr), p.bf16x2);
           }
         }
       }
@@ -696,16 +735,31 @@ int set_smem(const void* fn, size_t bytes) {
 Plan make_plan(const float* rel, const float* imgrow, const int* sb, const int* fr,
                const int* er, const int* ib, const int* tie_off, const short* col_perm,
                const int* col_off, const int* cover_off, const int* cover_ids, int G, int M,
-               int T, int W, int n_pad, int n_img_pad, int ne, int ni) {
-  return Plan{rel,     imgrow,    sb,        fr, er, ib, tie_off, col_perm, col_off,
-              cover_off, cover_ids, G,         M,  T,  W,  n_pad,   n_img_pad, ne, ni};
+               int T, int W, int n_pad, int n_img_pad, int ne, int ni, int bf16x2) {
+  return Plan{rel,       imgrow,    sb, fr, er, ib,    tie_off,   col_perm, col_off,
+              cover_off, cover_ids, G,  M,  T,  W,  n_pad, n_img_pad, ne,       ni, bf16x2};
+}
+
+// K2 without the camera vector; it stages vpose's band slice (ne * W floats)
+// when it has one, ne * W <= kMaxStagedV and the whole still fits a CTA.
+size_t schur_smem_unstaged(int T, int M, int with_precond) {
+  const size_t lane_vals = kMaxNI + (with_precond ? kIopPairs : 0);
+  return (2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
+          lane_vals * kLanes) * sizeof(float) +
+         (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
+}
+
+bool schur_stage_v(int T, int M, int W, int ne, int with_v, int with_precond) {
+  const size_t v = static_cast<size_t>(ne) * W;
+  return with_v && v <= kMaxStagedV &&
+         schur_smem_unstaged(T, M, with_precond) + v * sizeof(float) <= kSmemLimit;
 }
 
 }  // namespace
 
 extern "C" {
 
-int fusedmv_abi_version() { return 3; }
+int fusedmv_abi_version() { return 4; }
 
 const char* fusedmv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -717,11 +771,8 @@ size_t fusedmv_hpp_smem_bytes(int T) {
 }
 
 size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond) {
-  const size_t lane_vals = kMaxNI + (with_precond ? kIopPairs : 0);
-  const size_t v = (with_v && ne * W <= kMaxStagedV) ? static_cast<size_t>(ne) * W : 0;
-  return (2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
-          lane_vals * kLanes + v) * sizeof(float) +
-         (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
+  const bool v = schur_stage_v(T, M, W, ne, with_v, with_precond);
+  return schur_smem_unstaged(T, M, with_precond) + (v ? static_cast<size_t>(ne) * W : 0) * sizeof(float);
 }
 
 // K1.  hs (8, G*M); de_part (G, 8, W) and di_part (G, 8, 128) are scratch;
@@ -730,12 +781,13 @@ int fusedmv_hpp_pass(const float* acam, const float* apt, const float* rel,
                      const float* imgrow, const int* sb, const int* fr, const int* er,
                      const int* ib, const int* tie_off, const short* col_perm,
                      const int* col_off, const int* cover_off, const int* cover_ids, int G,
-                     int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni, float* hs,
-                     float* de_part, float* di_part, float* de, float* di, void* stream) {
+                     int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni,
+                     int bf16x2, float* hs, float* de_part, float* di_part, float* de,
+                     float* di, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
-                           cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni);
+                           cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni, bf16x2);
   const size_t smem = fusedmv_hpp_smem_bytes(T);
   const void* fn = reinterpret_cast<const void*>(hpp_group_kernel);
   int err = set_smem(fn, smem);
@@ -763,15 +815,16 @@ int fusedmv_schur_apply(const float* acam, const float* apt, const float* rel,
                         const int* col_off, const int* cover_off, const int* cover_ids, int G,
                         int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni,
                         int with_v, int with_a, int with_precond, int p_rows, int i_rows,
-                        float* pose_part, float* iop_part, float* out_y,
+                        int bf16x2, float* pose_part, float* iop_part, float* out_y,
                         float* p21_part, float* i55_part, float* out_pose, float* out_iop,
                         float* out_p21, float* out_i55, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
-                           cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni);
-  const SchurIO io{arows,  vpose,     vi,       hpi,   with_v,   with_a,
-                   p_rows, i_rows,    pose_part, iop_part, out_y, p21_part, i55_part};
+                           cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni, bf16x2);
+  const int stage_v = schur_stage_v(T, M, W, ne, with_v, with_precond);
+  const SchurIO io{arows,  vpose,  vi,      hpi,       with_v,   with_a, p_rows,
+                   i_rows, stage_v, pose_part, iop_part, out_y,   p21_part, i55_part};
   const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond);
   const void* fn = with_precond ? reinterpret_cast<const void*>(schur_group_kernel<true>)
                                 : reinterpret_cast<const void*>(schur_group_kernel<false>);

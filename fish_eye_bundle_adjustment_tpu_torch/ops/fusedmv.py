@@ -30,10 +30,17 @@ PyTorch version (``*_ref``) beside it.  The output shapes are the TPU kernels' -
 the (., 128) lane partials of the IOP outputs, which callers sum over
 lanes -- so the solver glue ports line for line.
 
-Precision: the kernels and the plain versions compute in f32 throughout.
-The ``precision`` argument ('bf16' | 'bf16x2') exists only so the API
-matches the JAX package, whose TPU kernels split operands into bf16 hi/lo
-because the MXU truncates f32; it is ignored here.
+Precision: as the JAX package's ``_dot`` does before each one-hot mask
+contraction, the kernels and the plain versions round the operand that is
+not the mask -- the camera vector at each row's image, P = Ap'a, the
+tie's y = Hpp^-1 t, the rows of C'b, the preconditioner's Hpp^-1 and sym
+rows (K2); the Hpp sym rows and the pose diagonal terms (K1) -- to
+nearest even: to bf16 for ``precision="bf16"``, to hi = bf16(x) plus
+lo = bf16(x - hi) for "bf16x2".  Everything else, and every sum, is f32.
+The arithmetic before each rounding is the same in the kernel and in the
+plain version, operation for operation (no fused multiply-add), and the
+plain version sums each tie's run in row order as the kernel does, so
+that a value near a bf16 rounding boundary rounds the same way in both.
 """
 
 from __future__ import annotations
@@ -214,6 +221,43 @@ def _row_maps(band: BandArrays):
     return owned, rank, tie, img, inband, lane
 
 
+PRECISIONS = {"bf16": 0, "bf16x2": 1}  # the C entry points' precision codes
+
+
+def _precision_code(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision is 'bf16' or 'bf16x2', got {precision!r}")
+    return PRECISIONS[precision]
+
+
+def _round(x, precision):
+    """The operand rounding of the JAX package's _dot: bf16 (nearest even),
+    or the bf16 hi/lo pair summed in f32 (exact)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    if not _precision_code(precision):
+        return hi
+    return hi + (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def _tie_sums(vals, rank, tie, n_cols):
+    """(k, n_pad) per-row values -> (k, n_cols) per-tie sums, each run of
+    the tie-rank-sorted stream summed in row order (as the K2 kernel sums
+    it): one masked add per position in the runs."""
+    out = vals.new_zeros((vals.shape[0], n_cols))
+    rows = torch.nonzero(tie).flatten()
+    if rows.numel() == 0:
+        return out
+    r = rank[rows]
+    idx = torch.arange(rows.numel(), device=rows.device)
+    new = torch.ones_like(tie[rows])
+    new[1:] = r[1:] != r[:-1]
+    pos = idx - torch.where(new, idx, torch.zeros_like(idx)).cummax(0).values
+    for k in range(int(pos.max()) + 1):
+        at = pos == k
+        out[:, r[at]] += vals[:, rows[at]]
+    return out
+
+
 def _by_image(vals, img, inband, n_img_pad):
     """(k, n_pad) per-row values -> (8 or k, n_img_pad) sums per image rank."""
     rows = max(8, vals.shape[0])
@@ -239,8 +283,9 @@ def fused_hpp_pass_ref(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
         [pt[a] * pt[b] + pt[3 + a] * pt[3 + b] for a in range(3) for b in range(a, 3)]
     ) * lf
     hs = cam.new_zeros((8, band.G * band.M))
-    hs[:6].index_add_(1, rank[tie], sym[:, tie])
-    de = torch.stack([cam[e] ** 2 + cam[ne + e] ** 2 for e in range(ne)]) * lf
+    hs[:6].index_add_(1, rank[tie], _round(sym, precision)[:, tie])
+    de = torch.stack([cam[e] * cam[e] + cam[ne + e] * cam[ne + e] for e in range(ne)]) * lf
+    de = _round(de, precision)
     di8 = cam.new_zeros((8, 128))
     if ni:
         di = torch.stack(
@@ -258,12 +303,14 @@ def fused_schur_apply_ref(band: BandArrays, acam_t, apt_t, hpi_t, ne: int,
     owned, rank, tie, img, inband, lane = _row_maps(band)
     cam, pt = acam_t, apt_t
     lf = owned.to(cam.dtype)
+    # every sum below is taken term by term in the kernel's order
     ax = cam.new_zeros(band.n_pad)
     ay = cam.new_zeros(band.n_pad)
     if vpose is not None:
-        V = vpose[:ne][:, img] * inband.to(cam.dtype)  # (ne, n_pad)
-        ax = ax + (cam[:ne] * V).sum(0)
-        ay = ay + (cam[ne : 2 * ne] * V).sum(0)
+        V = _round(vpose[:ne], precision)[:, img] * inband.to(cam.dtype)  # (ne, n_pad)
+        for e in range(ne):
+            ax = ax + cam[e] * V[e]
+            ay = ay + cam[ne + e] * V[e]
         for i in range(ni):
             ax = ax + vi[i] * cam[2 * ne + i]
             ay = ay + vi[i] * cam[2 * ne + ni + i]
@@ -274,19 +321,20 @@ def fused_schur_apply_ref(band: BandArrays, acam_t, apt_t, hpi_t, ne: int,
     ay = ay * lf
 
     # per-tie reduction -> Hpp^-1 -> expansion
-    P2 = pt[0:3] * ax + pt[3:6] * ay  # (3, n_pad)
-    t = cam.new_zeros((3, band.G * band.M))
-    t.index_add_(1, rank[tie], P2[:, tie])
+    P2 = _round(pt[0:3] * ax + pt[3:6] * ay, precision)  # (3, n_pad)
+    t = _tie_sums(P2, rank, tie, band.G * band.M)
     y = torch.stack(
         [sum(hpi_t[3 * p + q] * t[q] for q in range(3)) for p in range(3)]
     )  # (3, G*M)
     out_y = torch.cat([y, y.new_zeros((5, y.shape[1]))])
     tief = tie.to(cam.dtype)
-    Y = y[:, rank] * tief  # (3, n_pad)
-    bx = ax - (pt[0:3] * Y).sum(0)
-    by = ay - (pt[3:6] * Y).sum(0)
+    Y = _round(y, precision)[:, rank] * tief  # (3, n_pad)
+    bx, by = ax, ay
+    for q in range(3):
+        bx = bx - pt[q] * Y[q]
+        by = by - pt[3 + q] * Y[q]
 
-    Be = cam[:ne] * bx + cam[ne : 2 * ne] * by  # (ne, n_pad)
+    Be = _round(cam[:ne] * bx + cam[ne : 2 * ne] * by, precision)  # (ne, n_pad)
     out_pose = _by_image(Be, img, inband, band.n_img_pad)
     out_iop = cam.new_zeros((8, 128))
     if ni:
@@ -297,7 +345,7 @@ def fused_schur_apply_ref(band: BandArrays, acam_t, apt_t, hpi_t, ne: int,
 
     # Schur-Jacobi blocks: pose-diagonal sym columns with the exact
     # per-observation Hpp^-1 correction, IOP diagonal without correction
-    Hrow = hpi_t[:9][:, rank] * tief  # (9, n_pad): row 3p+q = Hpp^-1[p, q]
+    Hrow = _round(hpi_t[:9], precision)[:, rank] * tief  # (9, n_pad): row 3p+q = Hpp^-1[p, q]
     B = [[cam[e] * pt[p] + cam[ne + e] * pt[3 + p] for p in range(3)]
          for e in range(ne)]
     C = [[sum(B[e][p] * Hrow[3 * p + q] for p in range(3)) for q in range(3)]
@@ -307,7 +355,7 @@ def fused_schur_apply_ref(band: BandArrays, acam_t, apt_t, hpi_t, ne: int,
         for f in range(e, ne):
             hcc = cam[e] * cam[f] + cam[ne + e] * cam[ne + f]
             rows.append(hcc - sum(C[e][q] * B[f][q] for q in range(3)))
-    sym = torch.stack(rows) * lf
+    sym = _round(torch.stack(rows) * lf, precision)
     p21 = cam.new_zeros((_sym_rows(ne), band.n_img_pad))
     p21[: len(rows)] = _by_image(sym, img, inband, band.n_img_pad)[: len(rows)]
     i_rows = max(8, _sym_rows(ni))
@@ -379,6 +427,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_smem(smem, band, ne, mode):
+    """Raise before a launch whose CTA would need more shared memory than
+    an H100 block may have."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"{mode} needs {smem} bytes of shared memory a CTA at T={band.T}, "
+            f"M={band.M}, W={band.W}, ne={ne}; a block has {_build.SMEM_LIMIT}"
+        )
+
+
 def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
                    precision: str = "bf16x2"):
     """Returns (hs (8, G*M): rows 0-5 = per-tie Hpp sym cols in RANK
@@ -390,7 +450,9 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
     dev = _check_common(band, acam_t, apt_t, ne, ni)
+    bf16x2 = _precision_code(precision)
     lib = _build.load()
+    _check_smem(lib.fusedmv_hpp_smem_bytes(band.T), band, ne, "fused_hpp_pass")
     G, M, W = band.G, band.M, band.W
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     hs, de, di = emp(8, G * M), emp(8, band.n_img_pad), emp(8, 128)
@@ -398,7 +460,7 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fusedmv_hpp_pass(
         _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band),
-        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
+        G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni, bf16x2,
         _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de), _ptr(di), stream,
     )
     _build.check(code, "fused_hpp_pass")
@@ -432,7 +494,13 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         _check("vi", vi, (128,), torch.float32, dev)
     if a_rows is not None:
         _check("a_rows", a_rows, (8, band.n_pad), torch.float32, dev)
+    bf16x2 = _precision_code(precision)
     lib = _build.load()
+    mode = ("rhs + preconditioner" if with_precond else
+            "back-substitution" if with_v and a_rows is not None else
+            "matvec" if with_v else "reduced rhs")
+    _check_smem(lib.fusedmv_schur_smem_bytes(band.T, M, W, ne, int(with_v), int(with_precond)),
+                band, ne, f"fused_schur_apply ({mode})")
     p_rows = _sym_rows(ne)
     i_rows = max(8, _sym_rows(ni))
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
@@ -448,7 +516,7 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         _ptr(a_rows), _ptr(vpose), _ptr(vi), _ptr(hpi_t), *_index_ptrs(band)[2:],
         G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
         int(with_v), int(a_rows is not None), int(with_precond), p_rows, i_rows,
-        _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
+        bf16x2, _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
         _ptr(i55_part), _ptr(out_pose), _ptr(out_iop), _ptr(p21), _ptr(i55),
         stream,
     )

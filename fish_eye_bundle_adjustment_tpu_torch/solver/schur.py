@@ -312,7 +312,11 @@ class SchurOptions:
     plateau_detection: bool = True
     # fused banded operator (ops/fusedmv.py); None -> on where it applies
     fused: Optional[bool] = None
-    # accepted for API parity; the fused kernels compute in f32 throughout
+    # the fused operator's mask-contraction operands, rounded as the JAX
+    # package's _dot rounds them: 'bf16' single pass | 'bf16x2' hi/lo split
+    # (~1.5e-5 relative); rhs, back-substitution, preconditioner and K1 use
+    # fused_precision, the CG matvec fused_precision_mv (None: 'bf16' at
+    # u <= 600,000, where an inexact operator only perturbs the CG)
     fused_precision: str = "bf16x2"
     fused_precision_mv: Optional[str] = None
     band_M: int = 128  # tie ranks per group
@@ -337,8 +341,7 @@ class SchurKernel:
         self.ne = layout.n_eop
         self.ni = layout.n_iop
         self.nc = layout.eop_size + layout.iop_size
-        # kept for API parity (SchurOptions.fused_precision_mv); ignored by
-        # the f32 kernels
+        # CG-matvec operand precision (see SchurOptions.fused_precision_mv)
         self.mv_precision = opts.fused_precision_mv or (
             "bf16" if layout.u <= 600_000 else "bf16x2"
         )
@@ -875,45 +878,81 @@ class SchurFactors:
         return rhs, self._precond_from_blocks(blocks, lam), self.dcc
 
 
+_CG_UNROLL = 8  # masked iterations per host check (see _pcg)
+
+# What _pcg did since the last reset_cg_counts(): calls, flags read back to
+# the host, and matvecs run (masked iterations included).
+cg_counts = {"calls": 0, "host_reads": 0, "matvecs": 0}
+
+
+def reset_cg_counts():
+    for key in cg_counts:
+        cg_counts[key] = 0
+
+
 def _pcg(matvec, b, precond, project, tol, maxiter):
-    """Projected preconditioned CG.
+    """Projected preconditioned CG with masked iterations, as the JAX
+    package's _pcg runs it.
 
     `project` restricts iterates to null(G^T) for free-network solves
-    (identity otherwise).  Stops when ||r|| <= tol ||b|| or after maxiter
-    iterations.  Curvature guard: on a PD system p'Ap > 0 in exact
-    arithmetic, but f32 rounding near the CG noise floor of an
+    (identity otherwise).  Each iteration is masked: alpha and beta are
+    forced to 0 once ||r|| <= tol ||b||, once the budget of maxiter is
+    spent, or after the curvature guard trips, which makes every later
+    iteration an exact no-op.  The count of iterations taken stays on the
+    device.  At maxiter <= 2 * _CG_UNROLL the iterations are all issued
+    with no host read; otherwise one flag (i < maxiter, r'r > tol^2 b'b,
+    guard not tripped) is read back before each block of _CG_UNROLL.  The
+    semantics are the guarded loop's: the same updates while active, the
+    same x, count and stop.  Curvature guard: on a PD system p'Ap > 0 in
+    exact arithmetic, but f32 rounding near the CG noise floor of an
     ill-conditioned system can measure p'Ap <= 0 -- the unguarded step
     would then be huge and wrong-signed, so CG stops at the current
-    iterate instead.  Returns (x, iterations taken, ||r|| / ||b||).  The
-    comparisons run in the working dtype on the device; each reads one
-    flag back to the host."""
+    iterate instead.  Masked iterations still run the matvec.  Returns
+    (x, iterations taken as a 0-d int32 tensor, ||r|| / ||b||)."""
+    cg_counts["calls"] += 1
     b = project(b)
     bnorm2 = torch.dot(b, b)
     tol2 = tol * tol * bnorm2
+    zero, one = torch.zeros_like(bnorm2), torch.ones_like(bnorm2)
 
     def mv(v):
+        cg_counts["matvecs"] += 1
         return project(matvec(project(v)))
 
-    x = torch.zeros_like(b)
-    r = b
-    z = project(precond(b))
-    p = z
-    rz = torch.dot(r, z)
-    i = 0
-    while i < maxiter and bool(torch.dot(r, r) > tol2):
+    def masked_iter(state):
+        i, x, r, z, p, rz, ok = state
+        active = (torch.dot(r, r) > tol2) & (i < maxiter) & ok
         Ap = mv(p)
         pAp = torch.dot(p, Ap)
-        if not bool(pAp > 0):
-            break
-        alpha = rz / pAp
+        ok = ok & (pAp > 0)
+        take = active & (pAp > 0)
+        alpha = torch.where(take, rz / torch.where(pAp != 0, pAp, one), zero)
         x = x + alpha * p
         r = r - alpha * Ap
         z = project(precond(r))
         rz_new = torch.dot(r, z)
-        beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+        beta = torch.where(take, rz_new / torch.where(rz != 0, rz, one), zero)
+        p = torch.where(take, z + beta * p, p)
+        rz = torch.where(take, rz_new, rz)
+        return i + take.to(torch.int32), x, r, z, p, rz, ok
+
+    z0 = project(precond(b))
+    state = (torch.zeros((), dtype=torch.int32, device=b.device),
+             torch.zeros_like(b), b, z0, z0, torch.dot(b, z0),
+             torch.ones((), dtype=torch.bool, device=b.device))
+    if maxiter <= 2 * _CG_UNROLL:
+        for _ in range(maxiter):
+            state = masked_iter(state)
+    else:
+        def go_on(state):
+            i, _, r, *_, ok = state
+            cg_counts["host_reads"] += 1
+            return bool((i < maxiter) & (torch.dot(r, r) > tol2) & ok)
+
+        while go_on(state):
+            for _ in range(_CG_UNROLL):
+                state = masked_iter(state)
+    i, x, r = state[:3]
     return x, i, torch.sqrt(torch.dot(r, r) / bnorm2)
 
 
@@ -941,7 +980,8 @@ def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
     linearization picks).  `cg_tol` and `lam` are Python
     floats or 0-d tensors (lam = 0 is a pure GN step).
 
-    Returns (x_trial, L1(delta), v_local, stats, cg_iters) with stats =
+    Returns (x_trial, L1(delta), v_local, stats, cg_iters) with cg_iters a
+    0-d device tensor and stats =
     [vPv_model, sum_vx2, sum_vy2, cost_old]: vPv_model is the LINEARIZED
     weighted SSR at the trial point (sigma0^2 numerator, and the LM
     predicted cost), cost_old the TRUE weighted SSR at x."""
@@ -1303,11 +1343,11 @@ def solve_schur(
         problem, layout, band_plan, dtype=opts.dtype, device=dev
     )
     raw_step = schur_step_fn(kernel, layout, use_ic)
-    cg_iterations = []
+    cg_iterations = []  # 0-d device counts, read once at the end
 
     def step(x, o, tol, lam):
         out = raw_step(x, o, tol, lam)
-        cg_iterations.append(int(out[4]))
+        cg_iterations.append(out[4])
         return out
 
     (x, history, delta_history, v_local, stats, count, converged,
@@ -1323,5 +1363,6 @@ def solve_schur(
         stats.double().cpu().numpy(), count, converged, elapsed,
         keep_history, stopped_on,
     )
-    result.cg_iterations = cg_iterations
+    result.cg_iterations = (torch.stack(cg_iterations).tolist()
+                            if cg_iterations else [])
     return result

@@ -5,16 +5,17 @@ CUDA card, on the 1k-image self-calibrating fisheye block of bench.py.
 
 Imports nothing of JAX.  Three parts, each printing its own lines:
 
-  dtype     the dtype of the raw forward-mode Jacobian blocks (before
-            obs_jacobian_blocks casts them back) for float32 inputs on the
-            card: float64 means the tangents of the Jacobian pass run in f64
+  dtype     the dtype of the raw forward-mode Jacobian blocks for float32
+            inputs on the card: float64 would mean the tangents of the
+            Jacobian pass run in f64
   chunks    an A/B of models.projection.JACOBIAN_CHUNK, 2^18 rows against
             its value, in the order A, B, B, A: per round, the median wall
             of the Jacobian pass (SchurKernel.blocks) and of a whole step
             over STEPS runs each, and peak device memory
   profile   torch.profiler over one step at the default chunk: the step's
             wall, the device's busy time (sum of the device kernels' time)
-            and the top kernels by device time
+            and the top kernels by device time; the flags CG read back to
+            the host and the matvecs it ran in that step
 
 Each step starts from the same point with CG run to CG_ITERS iterations
 (cg_tol 0, as chip_smoke.py's cg_maxiter), so every step does the same
@@ -127,8 +128,10 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    schur.reset_cg_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _sync_wall_ms(one_step)
+    cgc = dict(schur.cg_counts)
     events = prof.key_averages()
     # the device's own entries only: an aten:: operator also carries the
     # device time of the kernels it launched, which would count it twice
@@ -137,11 +140,14 @@ def main():
     busy_ms = sum(dev_self(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_self, reverse=True)[:12]
     print(f"[profile] step wall {wall:.1f} ms (profiled), device busy {busy_ms:.1f} ms "
-          f"in {sum(e.count for e in kernels)} kernel launches")
+          f"in {sum(e.count for e in kernels)} kernel launches; CG read {cgc['host_reads']} "
+          f"flags back to the host and ran {cgc['matvecs']} matvecs")
     for e in top:
         print(f"[profile] {dev_self(e) / 1e3:9.2f} ms {e.count:5d} calls  {e.key[:90]}")
     result["profile"] = dict(
         chunk=default_chunk, step_ms=wall, device_busy_ms=busy_ms,
+        launches=sum(e.count for e in kernels), cg_host_reads=cgc["host_reads"],
+        cg_matvecs=cgc["matvecs"],
         top=[dict(name=e.key, device_ms=dev_self(e) / 1e3, calls=e.count) for e in top])
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "profile_torch_step.txt"), "w") as f:

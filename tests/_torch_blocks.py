@@ -82,10 +82,19 @@ def _stress_stream(name):
         tie = np.concatenate([np.repeat(np.arange(64), 2), [64, 64]])
         img = np.concatenate([np.arange(128), [0, n_img - 1]])
         return tie, img, n_tie, n_img, dict(M=64, max_W=n_img, try_image_reorder=False)
+    if name == "caps":
+        # the band plan's caps, M = 128: two groups of 128 ties, each tie seen
+        # by 128 images of its group's 2048, so each group spans T = 16384
+        # rows over a band of W = 2048 images
+        n_tie, per, n_img = 256, 128, 4096
+        tie = np.repeat(np.arange(n_tie), per)
+        img = (tie // 128) * 2048 + ((tie % 128) * 16 + np.tile(np.arange(per), n_tie)) % 2048
+        return tie, img, n_tie, n_img, dict(M=128)
     raise KeyError(name)
 
 
 STRESS = ("one_column", "one_tie_span", "empty_groups", "widest_W")
+CAPS = "caps"  # card tests only: its brute-force index check would take minutes
 
 
 def stress_plan(name):

@@ -8,8 +8,10 @@ This file imports no JAX, so it runs where only the port is installed:
 Whether there is a card is decided inside each test.
 
 Tolerances: each kernel against its plain PyTorch version on the same
-inputs at relative norm <= 1e-5 per output -- both are f32, only the
-summation order differs -- and bitwise-equal output on a repeated launch
+inputs at relative norm <= 1e-5 per output, at both operand precisions --
+both round the same f32 values (computed alike, without fused
+multiply-adds) to bf16 or bf16 hi + lo, so only the summation order of
+the outputs differs -- and bitwise-equal output on a repeated launch
 (no float atomics).  The reduce kernel alone is bitwise equal to the same sums taken
 in its order on the host.  A solve on the card against the same solve on
 the CPU (plain versions): x within rtol=3e-5, atol=3e-4."""
@@ -23,7 +25,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
-from _torch_blocks import STRESS, stress_plan, stress_streams
+from _torch_blocks import CAPS, STRESS, stress_plan, stress_streams
 
 pytestmark = pytest.mark.gpu
 
@@ -76,16 +78,16 @@ def _assert_close(got, want):
         assert float((g - w).norm()) <= 1e-5 * max(float(w.norm()), 1e-30)
 
 
-def _check_all(band, acam_t, apt_t, hpi_t, ne, ni, inputs):
+def _check_all(band, acam_t, apt_t, hpi_t, ne, ni, inputs, precision="bf16x2"):
     """K1 and every K2 mode against the plain versions (every output in
     full) and bitwise against a second launch."""
-    k1 = lambda: fusedmv.fused_hpp_pass(band, acam_t, apt_t, ne, ni)
+    k1 = lambda: fusedmv.fused_hpp_pass(band, acam_t, apt_t, ne, ni, precision=precision)
     got, again = k1(), k1()
-    _assert_close(got, fusedmv.fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni))
+    _assert_close(got, fusedmv.fused_hpp_pass_ref(band, acam_t, apt_t, ne, ni, precision))
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "K1"
 
     for mode, (with_v, with_a, with_precond) in MODES.items():
-        kw = dict(with_precond=with_precond)
+        kw = dict(with_precond=with_precond, precision=precision)
         if with_v:
             kw.update(vpose=inputs["vpose"], vi=inputs["vi"])
         if with_a:
@@ -97,15 +99,56 @@ def _check_all(band, acam_t, apt_t, hpi_t, ne, ni, inputs):
         assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
 
 
+@pytest.mark.parametrize("precision", ["bf16x2", "bf16"])
 @pytest.mark.parametrize("name", list(BLOCKS))
-def test_kernels_match_plain(name):
+def test_kernels_match_plain(name, precision):
     dev = _card()
     plan, fac, ne, ni = _linearized(name, dev)
     rng = np.random.default_rng(0)
     rnd = lambda *s: torch.as_tensor(
         rng.standard_normal(s).astype(np.float32), device=dev)
     inputs = dict(vpose=rnd(8, plan.n_img_pad), vi=rnd(128), a_rows=rnd(8, plan.n_pad))
-    _check_all(fac.obs.band, fac.acam_t, fac.apt_t, fac.hpi_t, ne, ni, inputs)
+    _check_all(fac.obs.band, fac.acam_t, fac.apt_t, fac.hpi_t, ne, ni, inputs, precision)
+
+
+@pytest.mark.parametrize("precision", ["bf16x2", "bf16"])
+def test_kernels_match_plain_at_the_plan_caps(precision):
+    """T = 16384, W = 2048, M = 128, ne = 6: the largest plan the band plan
+    builds.  The matvec and back-substitution stage the band's camera
+    vector and take 228,356 of the 232,448 bytes of shared memory a CTA
+    may have; the rhs + preconditioner 197,636."""
+    dev = _card()
+    plan = stress_plan(CAPS)
+    assert (plan.T, plan.W, plan.M) == (16384, 2048, 128)
+    from fish_eye_bundle_adjustment_tpu_torch.ops import _build
+
+    lib = _build.load()
+    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 1, 0) == 228_356
+    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 0, 1) == 197_636
+    band = fusedmv.BandArrays.from_plan(plan, dev)
+    a = {k: torch.as_tensor(v, device=dev) for k, v in stress_streams(plan).items()}
+    _check_all(band, a["acam_t"], a["apt_t"], a["hpi_t"], 6, 6, a, precision)
+
+
+def test_wrappers_raise_past_the_shared_memory_limit():
+    """A span past what a CTA's shared memory holds raises before any
+    launch, naming T, M, W, ne and the mode."""
+    import dataclasses
+
+    dev = _card()
+    plan, fac, ne, ni = _linearized("eop12", dev)
+    band = fac.obs.band
+    T = 131_072  # K1: 2 bytes a span row; K2: 10
+    big = dataclasses.replace(band, T=T, col_perm=torch.zeros(
+        (band.G, T), dtype=torch.int16, device=dev))
+    fusedmv.reset_counts()
+    with pytest.raises(ValueError, match=f"T={T}, M={band.M}, W={band.W}, ne={ne}"):
+        fusedmv.fused_hpp_pass(big, fac.acam_t, fac.apt_t, ne, ni)
+    a_rows = torch.zeros((8, band.n_pad), device=dev)
+    with pytest.raises(ValueError, match=r"rhs \+ preconditioner.*T=131072"):
+        fusedmv.fused_schur_apply(big, fac.acam_t, fac.apt_t, fac.hpi_t, ne, ni,
+                                  a_rows=a_rows, with_precond=True)
+    assert fusedmv.kernel_launches == {"fused_hpp_pass": 0, "fused_schur_apply": 0}
 
 
 @pytest.mark.parametrize("name", STRESS)

@@ -90,3 +90,47 @@ def test_single_observation_api_and_float32_dtype():
     assert r.shape == (2,) and Je.shape == (2, 6) and Ji.shape == (2, 6)
     assert Jp.shape == (2, 3)
     assert {t.dtype for t in (r, Je, Ji, Jp)} == {torch.float32}
+
+
+def test_float32_tangents_stay_float32():
+    """jacfwd of a float32 residual runs float32 tangents end to end, as
+    JAX's does: the raw jacfwd output is float32 with no cast after it."""
+    f = lambda a: torch.tensor(a, dtype=torch.float32)
+    eop, iop, xyz = (f([1.0, 2.0, 1000.0, 3.1, 0.01, 0.2]),
+                     f([1.5, -2.0, 1200.0, 3e-8, -2e-14, 4e-7, -3e-7]),
+                     f([30.0, -20.0, 10.0]))
+    for model_id in jproj.MODEL_IDS.values():
+        fn = lambda e, i, x: tproj.residual_obs(e, i, x, f([50.0, 60.0]),
+                                                 f(-1.0), model_id, 2)
+        J = torch.func.jacfwd(fn, argnums=(0, 1, 2))(eop, iop, xyz)
+        assert [j.dtype for j in J] == [torch.float32] * 3, model_id
+        Jv = torch.func.vmap(torch.func.jacfwd(fn, argnums=(0, 1, 2)),
+                             in_dims=(0, None, 0))(eop[None], iop, xyz[None])
+        assert [j.dtype for j in Jv] == [torch.float32] * 3, model_id
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_float32_blocks_match_jax_float32(model):
+    """The float32 blocks against JAX's float32 jacfwd on the same inputs.
+    Both sides round every intermediate to float32 in a different order, so
+    the tolerance is a few float32 ulps of each block's largest entry:
+    rtol 2e-5, atol 2e-6 of max |block| (the point derivatives cancel the
+    camera-centre ones, so small entries carry that absolute error)."""
+    eop, iop, xyz, xy, nk = _inputs(True)
+    model_id = jproj.MODEL_IDS[model]
+    f32 = lambda a: np.asarray(a, np.float32)
+    # float32 inputs keep JAX in float32 (its Python constants are weak)
+    jfn = jax.jit(jax.vmap(
+        lambda e, i, x, o, y: jproj.obs_jacobian_blocks(e, i, x, o, y, model_id, nk),
+        in_axes=(0, None, 0, 0, None),
+    ))
+    want = jfn(*(jnp.asarray(f32(a)) for a in (eop, iop, xyz, xy, -1.0)))
+    got = tproj.batched_jacobian_blocks(
+        *(torch.from_numpy(f32(a)) for a in (eop, iop, xyz, xy, -1.0)), model_id, nk
+    )
+    for name, w, g in zip(("r", "J_eop", "J_iop", "J_pt"), want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert w.dtype == np.float32 and g.dtype == np.float32, name
+        np.testing.assert_allclose(
+            g, w, rtol=2e-5, atol=2e-6 * np.abs(w).max(), err_msg=name
+        )

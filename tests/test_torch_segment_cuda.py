@@ -125,12 +125,18 @@ def test_unfused_solve_on_card_matches_cpu():
                    settings_overrides={"inner_constraints": False}).problem
     opts = schur.SchurOptions(explicit_s=False)
     prefix.reset_counts()
+    schur.reset_cg_counts()
     on_card = schur.solve_schur(p, opts, compute_covariance=False, device=dev)
     cg = on_card.cg_iterations
-    assert prefix.kernel_launches["chunk_prefix"] == 6 * len(cg) + 2 * sum(cg)
+    # CG runs masked blocks of 8 iterations (cg_maxiter = 500): one host
+    # check before each block and one that stops
+    cgc = schur.cg_counts
+    mv = 8 * (cgc["host_reads"] - cgc["calls"])
+    assert cgc["calls"] == len(cg) and cgc["matvecs"] == mv
+    assert prefix.kernel_launches["chunk_prefix"] == 6 * len(cg) + 2 * mv
     # tie sums of 3 columns, image sums of 6, the pose preconditioner's 21
     assert prefix.kernel_launches_by_width == {
-        3: sum(cg) + 2 * len(cg), 6: sum(cg) + 3 * len(cg), 21: len(cg)}
+        3: mv + 2 * len(cg), 6: mv + 3 * len(cg), 21: len(cg)}
     assert prefix.plain_calls["chunk_prefix"] == 0
     on_cpu = schur.solve_schur(p, opts, compute_covariance=False, device="cpu")
     assert on_card.iterations == on_cpu.iterations
