@@ -237,11 +237,11 @@ def phase_kernels(p, layout, opts, plan, dev):
     for T, M, W, where in ((band.T, band.M, band.W, "here"),
                            (cap_T, caps["M"].default, cap_W, "at the caps")):
         for which, label, smem in (
-                (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(T)),
+                (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(T, M)),
                 (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
-                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 1, 0)),
+                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 1, 0, _build.SMEM_LIMIT)),
                 (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
-                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 0, 1))):
+                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 0, 1, _build.SMEM_LIMIT))):
             occ = lib.fusedmv_occupancy(which, smem)
             print(f"[4 kernels] {label} {where}: {smem} bytes of dynamic shared memory "
                   f"at T={T}, M={M}, W={W}, ne={ne}, {occ} resident CTAs of 256 threads "

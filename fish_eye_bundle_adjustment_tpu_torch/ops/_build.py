@@ -26,7 +26,10 @@ _BUILD_DIR = Path(__file__).parent / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
+# dynamic shared memory one H100 block may use: the wrappers check against it,
+# and K2 is given it to decide whether the band's camera vector fits beside
+# the rest
+SMEM_LIMIT = 232_448
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (the ptxas register / shared-memory report);
@@ -39,18 +42,19 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "fusedmv_abi_version": ([], _I),
     "fusedmv_error_string": ([_I], ctypes.c_char_p),
-    "fusedmv_hpp_smem_bytes": ([_I], ctypes.c_size_t),
-    "fusedmv_schur_smem_bytes": ([_I] * 6, ctypes.c_size_t),
+    "fusedmv_hpp_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # T M W ne with_v with_precond smem_limit
+    "fusedmv_schur_smem_bytes": ([_I] * 6 + [ctypes.c_size_t], ctypes.c_size_t),
     "fusedmv_occupancy": ([_I, ctypes.c_size_t], _I),
     # acam apt rel imgrow sb fr er ib tie_off col_perm col_off cover_off
     # cover_ids | G M T W n_pad n_img_pad ne ni bf16x2 | hs de_part di_part
-    # de di stream
-    "fusedmv_hpp_pass": ([_P] * 13 + [_I] * 9 + [_P] * 6, _I),
+    # de_terms de di stream
+    "fusedmv_hpp_pass": ([_P] * 13 + [_I] * 9 + [_P] * 7, _I),
     # acam apt rel imgrow arows vpose vi hpi sb fr er ib tie_off col_perm
     # col_off cover_off cover_ids | G M T W n_pad n_img_pad ne ni with_v
-    # with_a with_precond p_rows i_rows bf16x2 | pose_part iop_part out_y
-    # p21_part i55_part out_pose out_iop out_p21 out_i55 stream
-    "fusedmv_schur_apply": ([_P] * 17 + [_I] * 14 + [_P] * 10, _I),
+    # with_a with_precond p_rows i_rows bf16x2 | smem_limit | pose_part
+    # iop_part out_y p21_part i55_part out_pose out_iop out_p21 out_i55 stream
+    "fusedmv_schur_apply": ([_P] * 17 + [_I] * 14 + [ctypes.c_size_t] + [_P] * 10, _I),
     # band_part lane_part ib cover_off cover_ids | G W n_img_pad band_rows
     # band_live lane_rows lane_live | band_out lane_out stream
     "fusedmv_reduce": ([_P] * 5 + [_I] * 7 + [_P] * 3, _I),
@@ -77,7 +81,7 @@ _SIGNATURES = {
     # partials | n_chunks width | out stream
     "scatter_reduce_f32": ([_P, _I, _I, _P, _P], _I),
 }
-_ABI = {"fusedmv": 4, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2}
+_ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2}
 
 
 def _nvcc() -> str:

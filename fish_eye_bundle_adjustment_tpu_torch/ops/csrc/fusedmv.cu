@@ -36,15 +36,19 @@
 //      in shared memory by bulk copies (one cp.async.bulk per stream row, the
 //      next tile's in flight during this one's tie runs) measured slower on
 //      the H100 than these register loads.
-//   K1 reads each row's IOP columns once in a row pass (IOP lane terms), then
-//      sums the tie runs of apt's products and the pose diagonal terms over the
-//      column runs.
-//   The column runs of both read each in-band row's pose columns a second time,
-//      by col_perm, from L2.  Shared memory per CTA is 10 bytes a span row (K2;
-//      2 in K1) plus ~60 a tie slot, so T up to the band plan's 16384 fits, and
-//      the band's camera vector (ne * W floats, up to kMaxStagedV) beside it
-//      while that fits too: at the plan's caps (T = 16384, W = 2048, M = 128,
-//      ne = 6) the matvec takes 228,356 of the 232,448 bytes a CTA may have.
+//   K1 takes the rows in tiles of 256 as K2 does: each row's thread forms its
+//      IOP lane terms, its rounded pose diagonal terms (written to a scratch
+//      stream) and its six rounded Hpp terms, and each tie's thread adds the
+//      tile's part of its run from shared memory; then each column's thread
+//      sums the pose diagonal terms of its run from the scratch stream.
+//   K2's column runs read each in-band row's pose columns a second time, by
+//      col_perm, from L2 (K1's its pose diagonal terms).  Shared memory per
+//      CTA is 10 bytes a span row (K2; 2 in K1) plus ~60 a tie slot (~100
+//      with the preconditioner's rounded Hpp^-1), so T up to the band plan's
+//      16384 fits, and the band's camera vector (ne * W floats, up to
+//      kMaxStagedV) beside it while that fits too: at the plan's caps
+//      (T = 16384, W = 2048, M = 128, ne = 6) the matvec takes 228,356 of the
+//      232,448 bytes a CTA may have.
 //      Past that the camera vector is read from global memory instead.
 
 // K2's column runs are unrolled (4 rows; 2 with the preconditioner's larger
@@ -82,7 +86,6 @@ constexpr int kMaxNI = 8;   // IOP unknowns of the shared camera (8 lane-partial
 constexpr int kPosePairs = kMaxNE * (kMaxNE + 1) / 2;
 constexpr int kIopPairs = kMaxNI * (kMaxNI + 1) / 2;
 constexpr int kMaxStagedV = 12288;  // K2 stages vpose's band slice up to ne * W floats
-constexpr size_t kSmemLimit = 232448;  // dynamic shared memory one H100 block may use
 
 // Products and sums rounded one at a time (never fused), for the values that
 // round_operand rounds.
@@ -164,42 +167,55 @@ __device__ __forceinline__ int combine_lanes(float (&v)[K], int k_live, float* l
 __global__ void __launch_bounds__(kThreads, 4)
 hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, const Plan p,
                  float* __restrict__ hs, float* __restrict__ de_part,
-                 float* __restrict__ di_part) {
+                 float* __restrict__ di_part, float* __restrict__ de_terms) {
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int T = p.T, M = p.M, W = p.W, ne = p.ne, ni = p.ni;
   float* lane_s = smem;                                           // (8, 128)
-  short* perm_s = reinterpret_cast<short*>(lane_s + 8 * kLanes);  // (T) col_perm
+  float* q_s = lane_s + 8 * kLanes;                               // (6, kThreads) tile terms
+  float* h_s = q_s + 6 * kThreads;                                // (6, M) running tie sums
+  int* toff_s = reinterpret_cast<int*>(h_s + 6 * M);              // (M + 1)
+  short* perm_s = reinterpret_cast<short*>(toff_s + M + 1);       // (T) col_perm
   const size_t n_pad = p.n_pad;
   int r0, n;
   group_rows(p.sb, p.fr, p.er, g, T, &r0, &n);
   const short* perm = p.col_perm + static_cast<size_t>(g) * T;
   for (int k = threadIdx.x; k < T; k += kThreads) perm_s[k] = perm[k];
+  const int* toff = p.tie_off + static_cast<size_t>(g) * (M + 1);
+  for (int m = threadIdx.x; m <= M; m += kThreads) toff_s[m] = toff[m];
+  for (int k = threadIdx.x; k < 6 * M; k += kThreads) h_s[k] = 0.f;
+  __syncthreads();
 
-  // row pass: IOP lane terms
+  // rows in tiles of kThreads, one a thread: the IOP lane terms, the row's
+  // rounded pose diagonal terms Aex_e^2 + Aey_e^2 into de_terms (read back
+  // by the column runs), and its six rounded Hpp terms Apx_a Apx_b +
+  // Apy_a Apy_b into q_s; then each tie's thread adds the tile's part of its
+  // run in row order (h_s carries the sums across tiles).  So every rounding
+  // is done by the rows' threads, none in the runs.
   float li[kMaxNI];
 #pragma unroll
   for (int k = 0; k < kMaxNI; ++k) li[k] = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const size_t r = r0 + i;
-#pragma unroll
-    for (int k = 0; k < kMaxNI; ++k) {
-      if (k < ni) {
-        const float x = acam[(2 * ne + k) * n_pad + r];
-        const float y = acam[(2 * ne + ni + k) * n_pad + r];
-        li[k] += x * x + y * y;
-      }
-    }
-  }
-
-  // tie runs: hs[:6, g*M + m] = sum over the run of Apx_a Apx_b + Apy_a Apy_b
-  const int* toff = p.tie_off + static_cast<size_t>(g) * (M + 1);
-  const size_t n_cols = static_cast<size_t>(p.G) * M;
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const int end = toff[m + 1];
-    for (int i = toff[m]; i < end; ++i) {
+  for (int t0 = 0; t0 < n; t0 += kThreads) {
+    const int t1 = min(n, t0 + kThreads);
+    const int i = t0 + threadIdx.x;
+    if (i < t1) {
       const size_t r = r0 + i;
+#pragma unroll
+      for (int k = 0; k < kMaxNI; ++k) {
+        if (k < ni) {
+          const float x = acam[(2 * ne + k) * n_pad + r];
+          const float y = acam[(2 * ne + ni + k) * n_pad + r];
+          li[k] += x * x + y * y;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kMaxNE; ++e) {
+        if (e < ne) {
+          const float x = acam[e * n_pad + r];
+          const float y = acam[(ne + e) * n_pad + r];
+          de_terms[e * n_pad + r] = round_operand(dot2(x, x, y, y), p.bf16x2);
+        }
+      }
       float px[3], py[3];
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
@@ -210,16 +226,36 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
 #pragma unroll
       for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int b = a; b < 3; ++b)
-          h[k++] += round_operand(dot2(px[a], px[b], py[a], py[b]), p.bf16x2);
+        for (int b = a; b < 3; ++b, ++k)
+          q_s[k * kThreads + threadIdx.x] = round_operand(dot2(px[a], px[b], py[a], py[b]), p.bf16x2);
     }
+    __syncthreads();
+    for (int m = threadIdx.x; m < M; m += kThreads) {
+      const int s = max(toff_s[m], t0), e = min(toff_s[m + 1], t1);
+      if (s < e) {
+        float h[6];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) h[k] = h_s[k * M + m];
+        for (int j = s; j < e; ++j) {
+#pragma unroll
+          for (int k = 0; k < 6; ++k) h[k] += q_s[k * kThreads + j - t0];
+        }
+#pragma unroll
+        for (int k = 0; k < 6; ++k) h_s[k * M + m] = h[k];
+      }
+    }
+    __syncthreads();
+  }
+
+  // hs[:6, g*M + m] = the tie's sums (0 for a slot without rows)
+  const size_t n_cols = static_cast<size_t>(p.G) * M;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
     const size_t col = static_cast<size_t>(g) * M + m;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) hs[k * n_cols + col] = k < 6 ? h[k] : 0.f;
+    for (int k = 0; k < 8; ++k) hs[k * n_cols + col] = k < 6 ? h_s[k * M + m] : 0.f;
   }
 
   // lanes: di_part[g, k, lane] = sum over owned rows r with r % 128 == lane
-  // (the barrier inside also publishes perm_s to the column runs)
   const int lane = combine_lanes(li, ni, lane_s, r0);
   if (threadIdx.x < kLanes) {
     float* out = di_part + static_cast<size_t>(g) * 8 * kLanes + lane;
@@ -229,24 +265,19 @@ hpp_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt, 
   }
 
   // column runs: de_part[g, e, c] = sum over the rows of image column c of
-  // Aex_e^2 + Aey_e^2
+  // their de_terms (this CTA's own writes, published by the barriers above)
   const int* coff = p.col_off + static_cast<size_t>(g) * (W + 1);
   for (int c = threadIdx.x; c < W; c += kThreads) {
     float d[kMaxNE];
 #pragma unroll
     for (int e = 0; e < kMaxNE; ++e) d[e] = 0.f;
     const int end = coff[c + 1];
+#pragma unroll 4
     for (int k = coff[c]; k < end; ++k) {
-      const int i = perm_s[k];
-      const size_t r = r0 + i;
+      const size_t r = r0 + perm_s[k];
 #pragma unroll
-      for (int e = 0; e < kMaxNE; ++e) {
-        if (e < ne) {
-          const float x = acam[e * n_pad + r];
-          const float y = acam[(ne + e) * n_pad + r];
-          d[e] += round_operand(dot2(x, x, y, y), p.bf16x2);
-        }
-      }
+      for (int e = 0; e < kMaxNE; ++e)
+        if (e < ne) d[e] += de_terms[e * n_pad + r];
     }
     float* out = de_part + static_cast<size_t>(g) * 8 * W + c;
 #pragma unroll
@@ -307,8 +338,8 @@ __device__ __forceinline__ void load_row(const float* __restrict__ acam,
   }
 }
 
-// The second half of a row, once its tie's y is known: b = a - Ap y, the IOP
-// lane terms, and b kept for the column runs.
+// The second half of a row, once its tie's y is known (y_s holds it rounded):
+// b = a - Ap y, the IOP lane terms, and b kept for the column runs.
 template <bool kPrecond>
 __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const Plan& p,
                                            float* ab_s, const float* y_s,
@@ -318,7 +349,7 @@ __device__ __forceinline__ void finish_row(const RowData& d, int i, int m, const
   if (m >= 0 && m < M) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float y = round_operand(y_s[q * M + m], p.bf16x2);
+      const float y = y_s[q * M + m];
       bx = sub(bx, mul(d.px[q], y));
       by = sub(by, mul(d.py[q], y));
     }
@@ -356,8 +387,9 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   float* y_s = t_s + 3 * M;                          // (3, M) Hpp^-1 t
   float* lane_s = y_s + 3 * M;                       // (lane values, 128)
   float* hpi_s = lane_s + (kMaxNI + (kPrecond ? kIopPairs : 0)) * kLanes;  // (9, M)
+  float* hpr_s = hpi_s + 9 * M;                      // (9, M) rounded, preconditioner only
   const bool stage_v = io.stage_v;
-  float* v_s = hpi_s + 9 * M;                        // (ne, W) the band's slice of vpose
+  float* v_s = hpr_s + (kPrecond ? 9 * M : 0);       // (ne, W) the band's slice of vpose
   int* toff_s = reinterpret_cast<int*>(v_s + (stage_v ? ne * W : 0));  // (M + 1)
   short* perm_s = reinterpret_cast<short*>(toff_s + M + 1);          // (T) col_perm
   const size_t n_pad = p.n_pad;
@@ -371,15 +403,18 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
   const int* toff = p.tie_off + static_cast<size_t>(g) * (M + 1);
   for (int m = threadIdx.x; m <= M; m += kThreads) toff_s[m] = toff[m];
   for (int k = threadIdx.x; k < 3 * M; k += kThreads) t_s[k] = 0.f;
-  for (int k = threadIdx.x; k < 9 * M; k += kThreads)
+  for (int k = threadIdx.x; k < 9 * M; k += kThreads) {
     hpi_s[k] = io.hpi[(k / M) * n_cols + col0 + k % M];
+    if (kPrecond) hpr_s[k] = round_operand(hpi_s[k], p.bf16x2);
+  }
   if (stage_v)
     for (int k = threadIdx.x; k < ne * W; k += kThreads)
       v_s[k] = io.vpose[static_cast<size_t>(k / W) * p.n_img_pad + base + k % W];
   const short* perm = p.col_perm + static_cast<size_t>(g) * T;
   for (int k = threadIdx.x; k < T; k += kThreads) perm_s[k] = perm[k];
 
-  // y = Hpp^-1 t of tie slot m, once its run is summed
+  // y = Hpp^-1 t of tie slot m, once its run is summed; the rows take it
+  // rounded
   auto finish_tie = [&](int m) {
     const size_t col = col0 + m;
 #pragma unroll
@@ -387,7 +422,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
       float y = 0.f;
 #pragma unroll
       for (int s = 0; s < 3; ++s) y = add(y, mul(hpi_s[(3 * q + s) * M + m], t_s[s * M + m]));
-      y_s[q * M + m] = y;
+      y_s[q * M + m] = round_operand(y, p.bf16x2);
       io.out_y[q * n_cols + col] = y;
     }
 #pragma unroll
@@ -532,7 +567,7 @@ schur_group_kernel(const float* __restrict__ acam, const float* __restrict__ apt
         const bool tie = m >= 0 && m < M;
         float H[9], px[3], py[3];
 #pragma unroll
-        for (int q = 0; q < 9; ++q) H[q] = tie ? round_operand(hpi_s[q * M + m], p.bf16x2) : 0.f;
+        for (int q = 0; q < 9; ++q) H[q] = tie ? hpr_s[q * M + m] : 0.f;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           px[q] = apt[q * n_pad + r];
@@ -741,59 +776,65 @@ Plan make_plan(const float* rel, const float* imgrow, const int* sb, const int* 
 }
 
 // K2 without the camera vector; it stages vpose's band slice (ne * W floats)
-// when it has one, ne * W <= kMaxStagedV and the whole still fits a CTA.
+// when it has one, ne * W <= kMaxStagedV and the whole still fits in
+// `smem_limit`, the bytes one CTA may have (the caller's ops/_build.SMEM_LIMIT).
 size_t schur_smem_unstaged(int T, int M, int with_precond) {
   const size_t lane_vals = kMaxNI + (with_precond ? kIopPairs : 0);
-  return (2 * static_cast<size_t>(T) + 3 * kThreads + 15 * static_cast<size_t>(M) +
+  const size_t tie_vals = with_precond ? 24 : 15;
+  return (2 * static_cast<size_t>(T) + 3 * kThreads + tie_vals * M +
           lane_vals * kLanes) * sizeof(float) +
          (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
 }
 
-bool schur_stage_v(int T, int M, int W, int ne, int with_v, int with_precond) {
+bool schur_stage_v(int T, int M, int W, int ne, int with_v, int with_precond,
+                   size_t smem_limit) {
   const size_t v = static_cast<size_t>(ne) * W;
   return with_v && v <= kMaxStagedV &&
-         schur_smem_unstaged(T, M, with_precond) + v * sizeof(float) <= kSmemLimit;
+         schur_smem_unstaged(T, M, with_precond) + v * sizeof(float) <= smem_limit;
 }
 
 }  // namespace
 
 extern "C" {
 
-int fusedmv_abi_version() { return 4; }
+int fusedmv_abi_version() { return 5; }
 
 const char* fusedmv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // Dynamic shared memory of one CTA.
-size_t fusedmv_hpp_smem_bytes(int T) {
-  return 8 * kLanes * sizeof(float) + static_cast<size_t>(T) * sizeof(short);
+size_t fusedmv_hpp_smem_bytes(int T, int M) {
+  return (8 * kLanes + 6 * kThreads + 6 * static_cast<size_t>(M)) * sizeof(float) +
+         (M + 1) * sizeof(int) + static_cast<size_t>(T) * sizeof(short);
 }
 
-size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond) {
-  const bool v = schur_stage_v(T, M, W, ne, with_v, with_precond);
+size_t fusedmv_schur_smem_bytes(int T, int M, int W, int ne, int with_v, int with_precond,
+                                size_t smem_limit) {
+  const bool v = schur_stage_v(T, M, W, ne, with_v, with_precond, smem_limit);
   return schur_smem_unstaged(T, M, with_precond) + (v ? static_cast<size_t>(ne) * W : 0) * sizeof(float);
 }
 
-// K1.  hs (8, G*M); de_part (G, 8, W) and di_part (G, 8, 128) are scratch;
+// K1.  hs (8, G*M); de_part (G, 8, W), di_part (G, 8, 128) and de_terms
+// (ne, n_pad) are scratch;
 // de (8, n_img_pad) and di (8, 128) the reduced outputs.
 int fusedmv_hpp_pass(const float* acam, const float* apt, const float* rel,
                      const float* imgrow, const int* sb, const int* fr, const int* er,
                      const int* ib, const int* tie_off, const short* col_perm,
                      const int* col_off, const int* cover_off, const int* cover_ids, int G,
                      int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni,
-                     int bf16x2, float* hs, float* de_part, float* di_part, float* de,
-                     float* di, void* stream) {
+                     int bf16x2, float* hs, float* de_part, float* di_part,
+                     float* de_terms, float* de, float* di, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
                            cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni, bf16x2);
-  const size_t smem = fusedmv_hpp_smem_bytes(T);
+  const size_t smem = fusedmv_hpp_smem_bytes(T, M);
   const void* fn = reinterpret_cast<const void*>(hpp_group_kernel);
   int err = set_smem(fn, smem);
   if (err) return err;
   if (G > 0) {
-    hpp_group_kernel<<<G, kThreads, smem, s>>>(acam, apt, p, hs, de_part, di_part);
+    hpp_group_kernel<<<G, kThreads, smem, s>>>(acam, apt, p, hs, de_part, di_part, de_terms);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
@@ -815,17 +856,18 @@ int fusedmv_schur_apply(const float* acam, const float* apt, const float* rel,
                         const int* col_off, const int* cover_off, const int* cover_ids, int G,
                         int M, int T, int W, int n_pad, int n_img_pad, int ne, int ni,
                         int with_v, int with_a, int with_precond, int p_rows, int i_rows,
-                        int bf16x2, float* pose_part, float* iop_part, float* out_y,
+                        int bf16x2, size_t smem_limit, float* pose_part, float* iop_part,
+                        float* out_y,
                         float* p21_part, float* i55_part, float* out_pose, float* out_iop,
                         float* out_p21, float* out_i55, void* stream) {
   if (ne > kMaxNE || ni > kMaxNI) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(rel, imgrow, sb, fr, er, ib, tie_off, col_perm, col_off, cover_off,
                            cover_ids, G, M, T, W, n_pad, n_img_pad, ne, ni, bf16x2);
-  const int stage_v = schur_stage_v(T, M, W, ne, with_v, with_precond);
+  const int stage_v = schur_stage_v(T, M, W, ne, with_v, with_precond, smem_limit);
   const SchurIO io{arows,  vpose,  vi,      hpi,       with_v,   with_a, p_rows,
                    i_rows, stage_v, pose_part, iop_part, out_y,   p21_part, i55_part};
-  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond);
+  const size_t smem = fusedmv_schur_smem_bytes(T, M, W, ne, with_v, with_precond, smem_limit);
   const void* fn = with_precond ? reinterpret_cast<const void*>(schur_group_kernel<true>)
                                 : reinterpret_cast<const void*>(schur_group_kernel<false>);
   int err = set_smem(fn, smem);

@@ -57,6 +57,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -347,6 +350,42 @@ const void* kernel_of(int load) {
                            : reinterpret_cast<const void*>(span_sum_kernel<kScalar, kPrefetch>);
 }
 
+// What a launch needs to know of the card for one (device, load, shared
+// memory): the shared-memory attribute is set and the room counted once, at
+// the first launch, and kept.
+struct Room {
+  int sms = 0, per_sm = 0, err = 0;
+};
+
+Room room_for(int load, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, size_t>, Room> cache;
+  int device = 0;
+  const int derr = static_cast<int>(cudaGetDevice(&device));
+  if (derr) return Room{0, 0, derr};
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(device, load, smem);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  Room r;
+  if (smem > 48 * 1024) {
+    r.err = static_cast<int>(cudaFuncSetAttribute(
+        kernel_of<true>(load), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (!r.err)
+      r.err = static_cast<int>(cudaFuncSetAttribute(kernel_of<false>(load),
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(smem)));
+  }
+  if (!r.err)
+    r.err = static_cast<int>(
+        cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount, device));
+  if (!r.err)
+    r.err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &r.per_sm, kernel_of<true>(load), kThreads, smem));
+  if (!r.err) cache[key] = r;
+  return r;
+}
+
 template <bool kPrefetch>
 void launch(int load, int n_blocks, size_t smem, cudaStream_t st, const float* vals,
             const int* ids, const int* r0, const int* r1, const int* s0, int S, int D,
@@ -393,25 +432,11 @@ int streamseg_span_sum(const float* vals, const int* ids, const int* r0, const i
                        : kScalar;
   const bool ids_vec = reinterpret_cast<std::uintptr_t>(ids) % 16 == 0;
   const size_t smem = streamseg_smem_bytes(S, D);
-  int err = 0;
-  if (smem > 48 * 1024) {
-    err = static_cast<int>(cudaFuncSetAttribute(
-        kernel_of<true>(load), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-    if (!err)
-      err = static_cast<int>(cudaFuncSetAttribute(kernel_of<false>(load),
-                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                  static_cast<int>(smem)));
-  }
   // prefetch when every span's CTA fits on the card at once with it
-  int device = 0, sms = 0, per_sm = 0;
-  if (!err) err = static_cast<int>(cudaGetDevice(&device));
-  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-  if (!err)
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of<true>(load), kThreads, smem));
-  if (err) return err;
+  const Room room = room_for(load, smem);
+  if (room.err) return room.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_blocks <= sms * per_sm)
+  if (n_blocks <= room.sms * room.per_sm)
     launch<true>(load, n_blocks, smem, st, vals, ids, r0, r1, s0, S, D, row_stride, col_stride,
                  ids_vec, out_block, out_slot, out_col, out);
   else

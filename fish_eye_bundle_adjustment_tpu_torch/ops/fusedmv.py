@@ -452,16 +452,17 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
     dev = _check_common(band, acam_t, apt_t, ne, ni)
     bf16x2 = _precision_code(precision)
     lib = _build.load()
-    _check_smem(lib.fusedmv_hpp_smem_bytes(band.T), band, ne, "fused_hpp_pass")
+    _check_smem(lib.fusedmv_hpp_smem_bytes(band.T, band.M), band, ne, "fused_hpp_pass")
     G, M, W = band.G, band.M, band.W
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     hs, de, di = emp(8, G * M), emp(8, band.n_img_pad), emp(8, 128)
     de_part, di_part = emp(G, 8, W), emp(G, 8, 128)
+    de_terms = emp(max(ne, 1), band.n_pad)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fusedmv_hpp_pass(
         _ptr(acam_t), _ptr(apt_t), *_index_ptrs(band),
         G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni, bf16x2,
-        _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de), _ptr(di), stream,
+        _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de_terms), _ptr(de), _ptr(di), stream,
     )
     _build.check(code, "fused_hpp_pass")
     kernel_launches["fused_hpp_pass"] += 1
@@ -499,7 +500,8 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
     mode = ("rhs + preconditioner" if with_precond else
             "back-substitution" if with_v and a_rows is not None else
             "matvec" if with_v else "reduced rhs")
-    _check_smem(lib.fusedmv_schur_smem_bytes(band.T, M, W, ne, int(with_v), int(with_precond)),
+    _check_smem(lib.fusedmv_schur_smem_bytes(band.T, M, W, ne, int(with_v), int(with_precond),
+                                             _build.SMEM_LIMIT),
                 band, ne, f"fused_schur_apply ({mode})")
     p_rows = _sym_rows(ne)
     i_rows = max(8, _sym_rows(ni))
@@ -516,7 +518,7 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         _ptr(a_rows), _ptr(vpose), _ptr(vi), _ptr(hpi_t), *_index_ptrs(band)[2:],
         G, M, band.T, W, band.n_pad, band.n_img_pad, ne, ni,
         int(with_v), int(a_rows is not None), int(with_precond), p_rows, i_rows,
-        bf16x2, _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
+        bf16x2, _build.SMEM_LIMIT, _ptr(pose_part), _ptr(iop_part), _ptr(out_y), _ptr(p21_part),
         _ptr(i55_part), _ptr(out_pose), _ptr(out_iop), _ptr(p21), _ptr(i55),
         stream,
     )

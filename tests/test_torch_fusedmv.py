@@ -4,11 +4,15 @@ Pallas kernels on the same folded streams.
 On the CPU the port's wrappers run the plain PyTorch versions; the JAX
 kernels run in interpret mode.  Both sides run at the same precision:
 "bf16", "bf16x2", or neither given (both wrappers' default, "bf16x2").
-Tolerance: relative norm < 5e-4 on every output the solver glue reads
-(lane partials summed), the budget tests/test_fusedmv.py gives the TPU
-kernel against the exact XLA path.  Both round the same operands the same
-way, so the gap is f32 summation order and the rare value that lies
-within an f32 rounding of a bf16 boundary (measured <= 6e-6).
+Tolerance: relative norm < 1e-5 on every output the solver glue reads
+(lane partials summed).  Both round the same operands the same way, so
+the gap is f32 summation order and the rare value that lies within an f32
+rounding of a bf16 boundary (at most 6.1e-6 here, on selfcal16's IOP rows
+of the reduced rhs).  test_unrounded_operands_fail_the_parity_tests is the
+control: the plain versions with the rounding taken out must fail these
+tests -- every case at "bf16" (a bf16 operand is off by up to 2^-9), and
+selfcal16's reduced rhs at "bf16x2", whose hi + lo pair is off by at most
+2^-17, within the f32 summation noise of the other outputs.
 
 The CUDA kernels themselves run only on a card: tests/test_torch_fusedmv_cuda.py
 (marked gpu, no JAX import) compares them with the plain versions there."""
@@ -31,7 +35,7 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLa
 
 from _torch_blocks import BLOCKS, STRESS, jax_block, stress_plan, to_port
 
-RTOL = 5e-4
+RTOL = 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,6 +174,22 @@ def test_schur_apply_matches_pallas(name, mode, prec):
     assert got_r.keys() == want_r.keys()
     for key in want_r:
         assert _rel(got_r[key], want_r[key]) < RTOL, key
+
+
+@pytest.mark.parametrize("prec", ["bf16", "bf16x2"])
+def test_unrounded_operands_fail_the_parity_tests(prec, monkeypatch):
+    """The control of the tests above: with the operand rounding taken out
+    of the plain versions, they miss RTOL."""
+    monkeypatch.setattr(tfused, "_round", lambda x, precision: x)
+    cases = ([("hpp", name, None) for name in NAMES]
+             + [("schur", name, mode) for name in NAMES for mode in MODES]
+             if prec == "bf16" else [("schur", "selfcal16", "rhs_precond")])
+    for test, name, mode in cases:
+        with pytest.raises(AssertionError):
+            if test == "hpp":
+                test_hpp_pass_matches_pallas(name, prec)
+            else:
+                test_schur_apply_matches_pallas(name, mode, prec)
 
 
 def test_wrappers_refuse_other_devices():

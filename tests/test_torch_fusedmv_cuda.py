@@ -116,15 +116,17 @@ def test_kernels_match_plain_at_the_plan_caps(precision):
     """T = 16384, W = 2048, M = 128, ne = 6: the largest plan the band plan
     builds.  The matvec and back-substitution stage the band's camera
     vector and take 228,356 of the 232,448 bytes of shared memory a CTA
-    may have; the rhs + preconditioner 197,636."""
+    may have; the rhs + preconditioner 202,244, K1 46,596."""
     dev = _card()
     plan = stress_plan(CAPS)
     assert (plan.T, plan.W, plan.M) == (16384, 2048, 128)
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
     lib = _build.load()
-    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 1, 0) == 228_356
-    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 0, 1) == 197_636
+    limit = _build.SMEM_LIMIT
+    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 1, 0, limit) == 228_356
+    assert lib.fusedmv_schur_smem_bytes(plan.T, plan.M, plan.W, 6, 0, 1, limit) == 202_244
+    assert lib.fusedmv_hpp_smem_bytes(plan.T, plan.M) == 46_596
     band = fusedmv.BandArrays.from_plan(plan, dev)
     a = {k: torch.as_tensor(v, device=dev) for k, v in stress_streams(plan).items()}
     _check_all(band, a["acam_t"], a["apt_t"], a["hpi_t"], 6, 6, a, precision)

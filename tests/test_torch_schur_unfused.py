@@ -72,9 +72,10 @@ def _jax_step(name, dtype, settings=(), opts=()):
     return step, obs, layout, order, o
 
 
-def _jax_solve(name, dtype, settings=(), opts=(), loop=(), inputs=None):
-    """The JAX unfused host-loop solve, with the CG count of each step;
-    `inputs`, a list, gets each step's (x, cg_tol, lam)."""
+def _jax_solve(name, dtype, settings=(), opts=(), loop=(), inputs=None, x0=None):
+    """The JAX unfused host-loop solve from `x0` (None: the layout's
+    initial point), with the CG count of each step; `inputs`, a list, gets
+    each step's (x, cg_tol, lam)."""
     step, obs, layout, order, o = _jax_step(name, dtype, settings, opts)
     problem = jax_block(name, **dict(settings), **dict(loop))
     cg = []
@@ -87,7 +88,7 @@ def _jax_solve(name, dtype, settings=(), opts=(), loop=(), inputs=None):
         return out
 
     (x, hist, dh, v, stats, count, conv, elapsed, stopped) = jschur.run_gn_loop(
-        counted, obs, layout, problem, o
+        counted, obs, layout, problem, o, x0=x0
     )
     v_np = jschur.unpermute_v(v, order, problem.n_obs)
     res = jschur._finalize(problem, layout, x, hist, dh, v_np, np.asarray(stats),
@@ -191,16 +192,45 @@ F32_CASES = {
 }
 
 
+def _ulp_moves(x, n, seed=0):
+    """n float32 copies of x, each entry moved by -1, 0 or +1 ulp (seeded)."""
+    rng = np.random.default_rng(seed)
+    x = np.asarray(x, np.float32)
+    up, down = np.nextafter(x, np.float32(np.inf)), np.nextafter(x, np.float32(-np.inf))
+    moves = []
+    for _ in range(n):
+        s = rng.integers(-1, 2, x.size)
+        moves.append(np.where(s > 0, up, np.where(s < 0, down, x)))
+    return moves
+
+
+def _port_step(problem, opts):
+    """The port's float32 step function and obs for the JAX problem."""
+    tp = to_port(problem)
+    tl = TLayout(tp)
+    to = _opts(tschur, np.float32, **dict(opts))
+    tobs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32)
+    tstep = tschur.schur_step_fn(tschur.SchurKernel(tl, to), tl,
+                                 tp.settings.inner_constraints)
+    return lambda x, tol, lam: int(tstep(torch.tensor(x), tobs, tol, lam)[4])
+
+
 @pytest.mark.parametrize("case", list(F32_CASES))
 def test_solve_matches_jax_f32(case):
     """The two float32 solves: the same stop, iteration count, x and
-    sigma0^2, as many steps, and each step's CG count within 2 of the JAX
-    step's at that step's inputs (its x, cg_tol and lambda).  Past the
-    float32 floor the forcing tolerance falls to ~4e-9, and there a step's
-    CG count depends on the ulps of its x: the JAX solve itself, started
-    from x0 moved by one ulp, gives 26-30 CG iterations at obs_order_img's
-    fifth step.  So the counts of two solves are compared at the same
-    inputs, where only the CG arithmetic differs."""
+    sigma0^2, as many steps, and each step's CG count within 2 --
+
+    - at the JAX step's own inputs (its x, cg_tol and lambda), where only
+      the step's arithmetic differs;
+    - along the port's own trajectory, against the JAX solves from x0 and
+      from x0 with each entry moved by at most one ulp (8 seeded moves):
+      within 2 of the lowest and the highest JAX count of that step.  Once
+      the forcing tolerance falls below ~1e-5 a step's CG count is a
+      threshold crossing on a plateau of the f32 residual, and one ulp in
+      x0 moves the JAX solve's own count by more than 2 there
+      (test_f32_cg_count_spread_matches_jax shows it).  A fault carried
+      from step to step (a wrong forcing tolerance or lambda) moves the
+      counts out of that envelope."""
     name, opts, loop = F32_CASES[case]
     inputs = []
     problem, want, want_cg = _jax_solve(name, np.float32, opts=opts, loop=loop,
@@ -209,14 +239,38 @@ def test_solve_matches_jax_f32(case):
     _assert_same_result(got, want, np.float32)
     assert len(got.cg_iterations) == len(want_cg)
     _assert_k4_count(got)
-    tp = to_port(problem)
-    tl = TLayout(tp)
-    to = _opts(tschur, np.float32, **dict(opts))
-    tobs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32)
-    tstep = tschur.schur_step_fn(tschur.SchurKernel(tl, to), tl,
-                                 tp.settings.inner_constraints)
-    cg = [int(tstep(torch.tensor(x), tobs, tol, lam)[4]) for x, tol, lam in inputs]
+    step = _port_step(problem, opts)
+    cg = [step(x, tol, lam) for x, tol, lam in inputs]
     assert all(abs(g - w) <= 2 for g, w in zip(cg, want_cg))
+    x0 = np.asarray(JLayout(problem).initial(), np.float32)
+    runs = [want_cg] + [_jax_solve(name, np.float32, opts=opts, loop=loop, x0=m)[2]
+                        for m in _ulp_moves(x0, 8)]
+    for k, g in enumerate(got.cg_iterations):
+        seen = [r[k] for r in runs if k < len(r)]
+        assert min(seen) - 2 <= g <= max(seen) + 2, (k, g, seen)
+
+
+def test_f32_cg_count_spread_matches_jax():
+    """At the fifth step of the image-sorted eop12 solve (forcing tolerance
+    ~5e-6), 24 seeded one-ulp moves of the JAX step's input x (each entry
+    -1, 0 or +1 ulp): the JAX step's own CG counts span more than 2
+    iterations, and the port's counts at the same inputs have the same
+    mean within 1 iteration and lie within 2 of the JAX range.  Rounding
+    alone decides where the residual crosses the tolerance there."""
+    name, opts, loop = F32_CASES["obs_order_img"]
+    inputs = []
+    problem, _, _ = _jax_solve(name, np.float32, opts=opts, loop=loop, inputs=inputs)
+    x, tol, lam = inputs[4]
+    assert 1e-6 < tol < 1e-5
+    jstep = _jax_step(name, np.float32, (), opts)[0]
+    jobs = _jax_step(name, np.float32, (), opts)[1]
+    step = _port_step(problem, opts)
+    moves = _ulp_moves(x, 24, seed=1)
+    want = np.array([int(jstep(jnp.asarray(m), jobs, tol, lam, None)[4]) for m in moves])
+    got = np.array([step(m, tol, lam) for m in moves])
+    assert want.max() - want.min() > 2, want
+    assert abs(got.mean() - want.mean()) <= 1.0, (got, want)
+    assert want.min() - 2 <= got.min() and got.max() <= want.max() + 2, (got, want)
 
 
 def test_gn_step_nine_iops_f32():

@@ -17,7 +17,10 @@ column stride N, output slots adjacent) and W's row-major one (8 columns a
 row) -- and their variants: an empty span, one slot holding a whole span,
 runs across lanes, warps and tiles of the kernel, slots outside [0, S), a
 span of 64K rows, bases and strides that rule out 16-byte loads, and
-D = 1, 3, 8, 21."""
+D = 1, 3, 8, 21.  The kernel prefetches the next tile only when every
+span's CTA is resident at once; the many_spans cases launch more CTAs than
+the card can hold (5,000 spans against at most 32 CTAs an SM), so they run
+the variant without prefetch, as K3 does at the bench shape (782 spans)."""
 
 import numpy as np
 import pytest
@@ -71,7 +74,19 @@ CASES = {
     "d1": (10_000, 5, 128, 1, 128, None, True),
     "d3": (10_000, 5, 128, 3, 128, None, False),
     "d21": (10_000, 5, 64, 21, 100, "base", False),
+    # more spans than the card holds at once: the variant without prefetch
+    "many_spans": (100_000, 5_000, 64, 8, 64, None, True),
+    "many_spans_d21": (100_000, 5_000, 32, 21, 32, "base", False),
+    "many_spans_outside_d3": (100_000, 5_000, 16, 3, 40, "shifted", True),
 }
+MANY = [name for name in CASES if name.startswith("many_spans")]
+MAX_CTAS_PER_SM = 32  # sm_90
+
+
+def _past_resident(n_blocks, dev):
+    """Whether n_blocks CTAs are more than the card can hold at once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n_blocks > sms * MAX_CTAS_PER_SM
 
 
 def _case(name, dev):
@@ -127,17 +142,21 @@ def test_span_sum_matches_plain(name, layout):
     got = _run_twice(src, ids, r0, r1, s0, out)
     want = _plain(vals, ids, r0, r1, s0, S)
     assert _rel(got, want) <= TOL
+    if name in MANY:
+        assert _past_resident(n_blocks, dev)
     if name == "one_slot" or name == "d1":
         assert (r1 > r0).any() and torch.count_nonzero(want) > 0
 
 
+@pytest.mark.parametrize("name", ["k3_like", "many_spans"])
 @pytest.mark.parametrize("variant", ["vals_base", "odd_stride", "ids_base"])
-def test_span_sum_without_16_byte_loads(variant):
+def test_span_sum_without_16_byte_loads(variant, name):
     """Bases and strides that rule out 16-byte loads take the kernel's
     scalar loads: a stream starting one float past a 16-byte boundary, a
-    transposed stream of odd column stride, ids starting one int past one."""
+    transposed stream of odd column stride, ids starting one int past one;
+    with the next tile prefetched (k3_like) and without (many_spans)."""
     dev = _card()
-    vals, ids, r0, r1, s0, S = _case("k3_like", dev)
+    vals, ids, r0, r1, s0, S = _case(name, dev)
     n, D = vals.shape
     if variant == "vals_base":
         big = torch.empty((D, n + 1), device=dev)
