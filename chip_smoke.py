@@ -73,6 +73,32 @@ of JAX.  Phases:
                    kernel, plain and library times, the byte bound and
                    the kernel's multiple of it; for W
                    and P the largest id span of a chunk beside W
+ 12. unfused img   solve_schur(problem, SchurOptions(dtype=float32,
+                   obs_order="img", cg_maxiter=40), compute_covariance=False,
+                   device="cuda") on the bench block for 2 GN iterations:
+                   direct tie and image sums, each one launch of the span
+                   segment sum (6 * steps + 2 * matvecs) and nothing else,
+                   no plain version; the same solve on the CPU (plain
+                   versions): sigma0^2 within 1e-4 relative, CG counts
+                   within 2 a step, and x no farther from the same solve
+                   in float64 (card) than the CPU's x is, within a factor
+                   2 in units of X_TOL (the card-vs-CPU distance is
+                   printed: two float32 solves of this block drift past
+                   X_TOL of each other); then
+                   the span segment sum at the solve's shapes (the CG
+                   matvec's image sum, D = 6, one image a CTA; its tie
+                   sum, D = 3, gathered into tie order) against its plain
+                   version, with kernel, plain and index_add_ times
+ 13. dense CLI     a self-calibrating free-network dataset (synth.write_block,
+                   120 images / 700 points, u = 2,820: the largest the CLI's
+                   auto gate still sends to the dense solver) through
+                   cli.main(folder, plot=False) on the card: rc 0,
+                   converged, sigma0^2 in [0.9, 1.1], .out/.rsd/.par
+                   written; solve_dense on the card against the CPU (x within
+                   rtol=1e-9, atol=1e-7, sigma0^2 within 1e-9 relative, the
+                   same iterations); the wall per iteration, peak memory and
+                   the device times (CUDA events) of the design assembly,
+                   A'PA, the bordered solve and the covariance inverse
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -86,17 +112,24 @@ the call's arithmetic over the peak rate of its type -- 67 TFLOP/s
 float32 (outside the tensor cores), 34 TFLOP/s float64 (H100 SXM data
 sheet) -- counted from the kernels' code per observation row (K1, K2,
 K4) or from the function's own arithmetic (phases 10 and 11).  The
-table has one entry per kernel of phases 4-9 and one per probe of
-phases 10-11; `replaces` lists the pallas_call sites each stands for.
+table has one entry per kernel of phases 4-9, one per probe of phases
+10-11 and one for the span segment sum on the solver path (phase 12);
+`replaces` lists the pallas_call sites each stands for.  Phase 13 adds no
+kernel: the dense path's products, solve and inverse are torch.matmul and
+torch.linalg, as the JAX package leaves them to XLA.
 """
 
+import contextlib
 import dataclasses
 import inspect
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -108,11 +141,13 @@ import bench_torch_streamseg
 from fish_eye_bundle_adjustment_tpu_torch.ops import (
     _build, fusedmv, prefix, probes, segment, streamseg,
 )
+from fish_eye_bundle_adjustment_tpu_torch import cli
+from fish_eye_bundle_adjustment_tpu_torch.io.problem import load_problem
 from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import build_band_plan
-from fish_eye_bundle_adjustment_tpu_torch.solver import schur
-from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
+from fish_eye_bundle_adjustment_tpu_torch.solver import dense, schur
+from fish_eye_bundle_adjustment_tpu_torch.synth import make_block, write_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
-    HBM_BYTES_PER_S, bound, cuda_ms, line, measure, rel_norm,
+    HBM_BYTES_PER_S, Probe, bound, cuda_ms, line, measure, rel_norm,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
@@ -616,6 +651,204 @@ def phase_probes(dev):
     return results
 
 
+def _solver_sum_probe(name, vals, ids, plan, dev):
+    """The span segment sum at one of the solver's shapes: vals (N, D)
+    float32 on the card in the plan's sorted order, ids (N,) its segment
+    ids."""
+    arrays = plan.on(dev)
+    ids_t = torch.as_tensor(ids, device=dev)
+    n_seg, d = plan.n_seg, vals.shape[1]
+    ref = np.zeros((n_seg, d))
+    np.add.at(ref, ids, vals.double().cpu().numpy())
+    return Probe(
+        name=name, kernel="span_segment_sum", replaces=bench_torch_streamseg.REPLACES,
+        call=lambda: streamseg.sorted_segment_sum_streaming(vals, plan),
+        plain=lambda: streamseg.streaming_segment_sum_t_ref(vals.T, plan).T,
+        library=lambda: vals.new_zeros((n_seg, d)).index_add_(0, ids_t, vals),
+        inputs=(vals, arrays.rel[: plan.n_rows], arrays.first_row, arrays.end_row),
+        flops=float(vals.numel()), exact=False, ref=ref, ref_err="rel_ref")
+
+
+def phase_unfused_img(p, layout, dev):
+    """The unfused float32 path at obs_order="img" on the bench block."""
+    problem = dataclasses.replace(
+        p, settings=dataclasses.replace(p.settings, iteration_cap=2))
+    opts = schur.SchurOptions(dtype=np.float32, obs_order="img", cg_maxiter=40)
+    if schur.make_band_plan(p, layout, opts) is not None or schur.uses_explicit_s(p, layout, opts):
+        raise RuntimeError("[12 unfused img] FAIL: not the matrix-free unfused path")
+
+    def progress(rec):
+        print(f"[12 unfused img] iter {rec.iteration}: L1(delta)={rec.delta_l1:.6g} "
+              f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
+              f"wall={rec.elapsed_s * 1e3:.1f} ms" + ("" if rec.accepted else " REJECTED"))
+
+    def solve():
+        return schur.solve_schur(problem, opts, compute_covariance=False, device=dev,
+                                 progress_fn=progress)
+
+    torch.cuda.reset_peak_memory_stats()
+    schur.reset_cg_counts()
+    t0 = time.perf_counter()
+    res, ran = _drive("12 unfused img", solve, {"span_segment_sum"})
+    wall = time.perf_counter() - t0
+    cgc = dict(schur.cg_counts)
+    cg = res.cg_iterations
+    mv = 8 * (cgc["host_reads"] - cgc["calls"])
+    want = 6 * len(cg) + 2 * mv
+    print(f"[12 unfused img] float32 obs_order=img stopped_on={res.stopped_on} "
+          f"iterations={res.iterations} steps={len(cg)} cg per step={cg} "
+          f"sigma0^2={res.sigma02:.6f} wall={wall:.2f} s peak mem="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; CG {cgc}")
+    print(f"[12 unfused img] span segment sum launches {ran['span_segment_sum']}, expected "
+          f"6 * steps + 2 * matvecs = {want} (per step: linearize's tie and image "
+          f"sums, the reduced rhs's two, the pose preconditioner, the "
+          f"back-substitution; per CG matvec: one tie and one image sum)")
+    if not (np.isfinite(res.x).all() and np.isfinite(res.sigma02)):
+        raise RuntimeError("[12 unfused img] FAIL: non-finite result")
+    if res.iterations != 2 or ran["span_segment_sum"] != want or cgc["matvecs"] != mv:
+        raise RuntimeError(f"[12 unfused img] FAIL: {res.iterations} iterations, "
+                           f"launches {ran}, CG {cgc}")
+    t0 = time.perf_counter()
+    on_cpu = schur.solve_schur(problem, opts, compute_covariance=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # the same solve in float64 on the card: the yardstick both float32
+    # solves are held to (two float32 solves of this block at 40 CG
+    # iterations a step are not held to X_TOL of each other: each CG
+    # amplifies its own summation order's rounding)
+    f64 = schur.solve_schur(problem, dataclasses.replace(opts, dtype=np.float64),
+                            compute_covariance=False, device=dev)
+
+    def use(x, ref):
+        """max |x - ref| in units of X_TOL at ref; the share of entries past 1"""
+        u = np.abs(x - ref) / (X_TOL["atol"] + X_TOL["rtol"] * np.abs(ref))
+        return float(u.max()), float(np.mean(u > 1))
+
+    (card_cpu, share), (card_64, _), (cpu_64, _) = (
+        use(res.x, on_cpu.x), use(res.x, f64.x), use(on_cpu.x, f64.x))
+    print(f"[12 unfused img] cpu (plain versions, {cpu_s:.1f} s): {on_cpu.iterations} it "
+          f"sigma0^2={on_cpu.sigma02:.6f} cg {on_cpu.cg_iterations}; float64 on the card: "
+          f"sigma0^2={f64.sigma02:.6f} cg {f64.cg_iterations}")
+    print(f"[12 unfused img] x in units of X_TOL (rtol=3e-5, atol=3e-4): card vs cpu "
+          f"{card_cpu:.3f} ({share:.3%} of entries past 1); from the float64 solve: card "
+          f"{card_64:.3f}, cpu {cpu_64:.3f}")
+    if not (card_64 <= 2 * cpu_64 and on_cpu.iterations == res.iterations
+            and abs(res.sigma02 - on_cpu.sigma02) <= 1e-4 * on_cpu.sigma02
+            and len(cg) == len(on_cpu.cg_iterations)
+            and all(abs(a - b) <= 2 for a, b in zip(cg, on_cpu.cg_iterations))):
+        raise RuntimeError("[12 unfused img] FAIL: the card's solve differs from the CPU's")
+
+    # the kernel at the solve's shapes, on the stream's own plans
+    obs = schur.ObsData.from_problem(p, layout, dtype=np.float32, device=dev, obs_order="img")
+    n = obs.W.shape[0]
+    rng = np.random.default_rng(2)
+    img = obs.img.cpu().numpy()
+    img = img[obs.by_img.perm.cpu().numpy()] if obs.by_img.perm is not None else img
+    tie = obs.tie.cpu().numpy()[obs.by_tie.perm.cpu().numpy()]
+    probes = []
+    for name, d, ids, direct in (("solver img", 6, img, obs.by_img),
+                                 ("solver tie", 3, tie, obs.by_tie)):
+        vals = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev)
+        if direct.perm is not None:  # as DirectPlan.sum gathers
+            print(f"[12 unfused img] {name}: its gather into tie order "
+                  f"{cuda_ms(lambda: vals[direct.perm]):.4f} ms, then:")
+            vals = vals[direct.perm]
+        rows = direct.plan.n_rows  # the rows of padding and of the dummy tie follow
+        pr = _solver_sum_probe(name, vals[:rows], ids[:rows], direct.plan, dev)
+        r = measure(pr, PROBE_TOL)
+        print(f"[12 unfused img] M={direct.plan.M} G={direct.plan.G} N={n} strides "
+              f"{tuple(vals.stride())}: {line(pr, r)}")
+        probes.append((pr, r))
+    probes[0][1]["launches"] = ran["span_segment_sum"]
+    return probes[0]
+
+
+def _dense_problem(folder):
+    """The dense CLI's dataset: self-calibrating (c, xp, yp, k1, p1, p2),
+    free network, written by synth.write_block into `folder`."""
+    blk = make_block(n_img=120, n_pts=700, model="fisheye", seed=3, control_frac=0.0,
+                     settings_overrides={"inner_constraints": True, **SELFCAL,
+                                         "num_radial_distortions": 1})
+    shutil.rmtree(folder, ignore_errors=True)
+    write_block(blk, folder)
+    return load_problem(folder)
+
+
+def phase_dense_cli(dev, card):
+    folder = Path("chiprun_out") / "smoke_dense_cli" / "ds"
+    problem = _dense_problem(folder)
+    layout = ParamLayout(problem)
+    picked = cli.pick_solver(problem)
+    print(f"[13 dense cli] {problem.n_img} images, {problem.n_obs} image points, "
+          f"u={layout.u}, A {2 * problem.n_obs} x {layout.u} float64 "
+          f"({2 * problem.n_obs * layout.u * 8 / 1e6:.0f} MB); auto picks {picked}")
+    if not (2500 < layout.u <= 3000 and picked == "dense"):
+        raise RuntimeError("[13 dense cli] FAIL: not the dense gate's largest block")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(folder, plot=False)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    stem = folder.name
+    written = [folder / f"{stem}.{ext}" for ext in ("out", "rsd", "par")]
+    found = re.search(r"A-Posteriori\.+([-\d.eE+]+)", written[0].read_text()) if written[0].exists() else None
+    sigma02 = float(found.group(1)) if found else float("nan")
+    print(f"[13 dense cli] cli.main on the card: rc {rc} in {wall:.2f} s, "
+          f"{text.count('Iteration ')} iterations, sigma0^2 {sigma02:.6f}, "
+          f"wrote {[w.name for w in written if w.exists()]}")
+    if rc != 0 or "Iteration Cap reached" in text or not all(w.exists() for w in written):
+        raise RuntimeError(f"[13 dense cli] FAIL: cli.main: rc {rc}\n{text}")
+    if not 0.9 <= sigma02 <= 1.1:
+        raise RuntimeError(f"[13 dense cli] FAIL: sigma0^2 {sigma02} outside [0.9, 1.1]")
+
+    steps = []
+    step = dense.DenseSystem.step
+
+    def counted(self, x, lam):
+        steps.append(lam)
+        return step(self, x, lam)
+
+    dense.DenseSystem.step = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        on_card = dense.solve_dense(problem, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dense.DenseSystem.step = step
+    t0 = time.perf_counter()
+    on_cpu = dense.solve_dense(problem, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = np.abs(on_card.x - on_cpu.x)
+    viol = float(np.max(diff / (X_TOL_F64["atol"] + X_TOL_F64["rtol"] * np.abs(on_cpu.x))))
+    print(f"[13 dense cli] solve_dense card: {on_card.iterations} iterations "
+          f"({len(steps)} steps, converged {on_card.converged}) in {on_card.elapsed_s:.3f} s, "
+          f"{on_card.elapsed_s / len(steps) * 1e3:.1f} ms a step, sigma0^2 "
+          f"{on_card.sigma02:.9f}, peak mem {peak / 2**30:.3f} GiB; cpu {on_cpu.iterations} "
+          f"iterations in {cpu_s:.1f} s, sigma0^2 {on_cpu.sigma02:.9f}; max |dx| "
+          f"{diff.max():.3e} (tolerance use {viol:.3f}) [{card}]")
+    np.testing.assert_allclose(on_card.x, on_cpu.x, **X_TOL_F64)
+    if not (on_card.converged and on_card.iterations == on_cpu.iterations
+            and abs(on_card.sigma02 - on_cpu.sigma02) <= 1e-9 * on_cpu.sigma02):
+        raise RuntimeError("[13 dense cli] FAIL: the card's dense solve differs from the CPU's")
+
+    # one iteration's pieces at the solution, device times from CUDA events
+    system = dense.DenseSystem(problem, layout, dev)
+    x = torch.as_tensor(on_card.x, device=dev)
+    q, A, w = system.design(x)
+    N, uvec = system.normal(A, w)
+    K = system.bordered(q, N)
+    times = {
+        "design assembly (Jacobians + placement)": cuda_ms(lambda: system.design(x), reps=5),
+        "A'PA and A'Pw": cuda_ms(lambda: system.normal(A, w), reps=5),
+        "bordered solve": cuda_ms(lambda: system.delta(q, N, uvec), reps=5),
+        "covariance inverse (bordered)": cuda_ms(lambda: torch.linalg.inv(K), reps=5),
+    }
+    print("[13 dense cli] device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" [{card}]")
+
+
 def main():
     card = phase_environment()
     dev = torch.device("cuda")
@@ -630,6 +863,12 @@ def main():
     t0 = time.perf_counter()
     measured = phase_streamseg(dev) + phase_probes(dev)
     print(f"[11 probes] phases 10-11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    measured.append(phase_unfused_img(p, layout, dev))
+    print(f"[12 unfused img] phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dense_cli(dev, card)
+    print(f"[13 dense cli] phase 13 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);

@@ -1,0 +1,211 @@
+"""CLI entry point + batch driver of the PyTorch port (reference L5:
+main.m:10, BatchRun.m).
+
+Usage:
+    python -m fish_eye_bundle_adjustment_tpu_torch.cli DATASET_DIR [options]
+    python -m fish_eye_bundle_adjustment_tpu_torch.cli --batch ROOT_DIR [options]
+
+A port of fish_eye_bundle_adjustment_tpu/cli.py: `main(folder, plot)`
+mirrors the reference entry point main.m:10; batch mode mirrors
+BatchRun.m's recursive scan for complete {.pho,.ext,.cnt,.int} sets
+(BatchRun.m:52,68-150) with the project-directory .cfg fallback
+(main.m:76-85).  The solve runs on the CUDA card unless the caller asks
+for the CPU (`device="cpu"`, `--cpu`); without a card and without that
+request it fails.  Solvers: `auto` and `dense` run the dense parity solver;
+`schur` and the scale modes wait for their ROADMAP.md items and raise
+NotImplementedError naming them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+from typing import Optional
+
+REQUIRED_EXTS = (".pho", ".ext", ".cnt", ".int")
+
+# What each solver outside the port so far waits for (ROADMAP.md Queue 1).
+_NOT_PORTED = {
+    "schur": "solver/explicit.py and solver/covariance.py (ROADMAP.md Queue 1, "
+             "items 5 and 6): the default SchurOptions and the stds the report prints",
+    "distributed": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
+    "sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
+    "fused_sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
+    "posegraph": "parallel/posegraph.py (ROADMAP.md Queue 1, item 9)",
+}
+
+
+def main(folder, plot: bool = True, cfg: Optional[str] = None,
+         solver: str = "auto", out_dir=None, checkpoint: Optional[str] = None,
+         devices: Optional[int] = None, blocks: int = 4, device=None) -> int:
+    """Run one adjustment on `device` (None: the CUDA card). Returns 0 on
+    success, 1 on error (the reference's main_error convention,
+    main.m:23)."""
+    from fish_eye_bundle_adjustment_tpu_torch.config import ConfigError
+    from fish_eye_bundle_adjustment_tpu_torch.io.problem import load_problem
+    from fish_eye_bundle_adjustment_tpu_torch.io.readers import DatasetError
+    from fish_eye_bundle_adjustment_tpu_torch.report.writers import write_reports
+
+    folder = Path(folder)
+    out_dir = Path(out_dir) if out_dir else folder
+    try:
+        problem = load_problem(folder, fallback_cfg=Path(cfg) if cfg else None)
+    except (DatasetError, ConfigError, OSError) as e:
+        print(f"Error reading files: {e}", file=sys.stderr)
+        return 1
+
+    print(f"Files read successfully! ({folder})")
+    print(
+        f"Type set to {problem.settings.model}; "
+        f"{problem.n_img} images / {problem.n_cam} cameras / "
+        f"{problem.n_obs} image points / {problem.n_tie} tie points"
+    )
+
+    t0 = time.perf_counter()
+    try:
+        result = _solve(problem, solver, checkpoint, devices=devices,
+                        blocks=blocks, keep_history=plot, device=device)
+    except Exception as e:  # solver-level failure: report and continue batch
+        print(f"Error during adjustment: {e}", file=sys.stderr)
+        return 1
+    elapsed = time.perf_counter() - t0
+
+    for i, d in enumerate(result.delta_history, 1):
+        print(f"Iteration {i}: sum|delta| = {d:.6g}")
+    if not result.converged:
+        print("Iteration Cap reached. This can be changed in the .cfg file")
+    print(f"Elapsed time is {elapsed:.4g} seconds.")
+
+    try:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths = write_reports(result, out_dir, elapsed_s=elapsed)
+        print(f"Wrote {paths['out'].name}, {paths['rsd'].name}, {paths['par'].name}")
+        if plot:
+            from fish_eye_bundle_adjustment_tpu_torch.report.plots import write_plots
+
+            for p in write_plots(result, out_dir):
+                print(f"Wrote {Path(p).name}")
+    except OSError as e:
+        print(f"Error writing output: {e}", file=sys.stderr)
+        return 1
+    print("Done!")
+    return 0
+
+
+def pick_solver(problem, solver: str = "auto") -> str:
+    """`auto`: the dense parity path for report-sized problems (u <= 3000),
+    Schur for scale; any other name is returned as given."""
+    if solver != "auto":
+        return solver
+    from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
+
+    return "dense" if ParamLayout(problem).u <= 3000 else "schur"
+
+
+def _solve(problem, solver: str, checkpoint: Optional[str] = None,
+           devices: Optional[int] = None, blocks: int = 4,
+           keep_history: bool = False, device=None):
+    solver = pick_solver(problem, solver)
+    if solver == "dense":
+        from fish_eye_bundle_adjustment_tpu_torch.solver.dense import solve_dense
+
+        if checkpoint:
+            print("note: --checkpoint applies to the schur solver only", file=sys.stderr)
+        return solve_dense(problem, keep_history=keep_history, device=device)
+    if solver in _NOT_PORTED:
+        raise NotImplementedError(
+            f"--solver {solver}: needs {_NOT_PORTED[solver]}, not ported yet"
+        )
+    raise ValueError(f"unknown solver {solver!r}")
+
+
+def find_datasets(root) -> list:
+    """Recursively find folders holding a complete {.pho,.ext,.cnt,.int} set;
+    warn on partial or duplicated sets (BatchRun.m:68-150)."""
+    root = Path(root)
+    complete, partial = [], []
+    for d in sorted({p.parent for ext in REQUIRED_EXTS for p in root.rglob(f"*{ext}")}):
+        counts = {ext: len(list(d.glob(f"*{ext}"))) for ext in REQUIRED_EXTS}
+        if all(c >= 1 for c in counts.values()):
+            if any(c > 1 for c in counts.values()):
+                print(f"warning: duplicate dataset files in {d}: {counts}", file=sys.stderr)
+            else:
+                complete.append(d)
+        elif any(c > 0 for c in counts.values()):
+            partial.append(d)
+    for d in partial:
+        print(f"warning: incomplete dataset (missing required files): {d}", file=sys.stderr)
+    return complete
+
+
+def batch(root, plot: bool = False, cfg: Optional[str] = None, solver: str = "auto",
+          device=None) -> int:
+    """Run every complete dataset under `root` (BatchRun.m:57-65).
+
+    Unlike the reference (which aborts the whole batch on first error,
+    BatchRun.m:60-64), failures are reported and the batch continues;
+    the return code is the number of failed datasets."""
+    datasets = find_datasets(root)
+    if not datasets:
+        print(f"no complete datasets under {root}", file=sys.stderr)
+        return 1
+    failures = 0
+    for d in datasets:
+        print(f"=== {d} ===")
+        failures += 1 if main(d, plot=plot, cfg=cfg, solver=solver, device=device) else 0
+    print(f"Batch finished: {len(datasets) - failures}/{len(datasets)} succeeded")
+    return failures
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="fish_eye_bundle_adjustment_tpu_torch",
+        description="fish-eye bundle adjustment, PyTorch/CUDA port",
+    )
+    ap.add_argument("folder", nargs="?", default=".", help="dataset folder (default: cwd)")
+    ap.add_argument("--batch", metavar="ROOT", help="recursively adjust every dataset under ROOT")
+    ap.add_argument("--no-plots", action="store_true", help="skip PNG plot output")
+    ap.add_argument("--cfg", help="fallback .cfg when the dataset folder has none")
+    ap.add_argument(
+        "--solver",
+        choices=("auto", "dense", "schur", "distributed", "sharded",
+                 "fused_sharded", "posegraph"),
+        default="auto",
+        help="dense parity solver, or size-based auto (dense at u <= 3000); "
+             "schur and the scale modes (distributed, sharded, fused_sharded, "
+             "posegraph) are not ported yet and fail naming what they need",
+    )
+    ap.add_argument("--devices", type=int,
+                    help="mesh size for --solver distributed/sharded (not ported yet)")
+    ap.add_argument("--blocks", type=int, default=4,
+                    help="number of image partitions for --solver posegraph (not ported yet)")
+    ap.add_argument("--out-dir", help="write outputs here instead of the dataset folder")
+    ap.add_argument("--checkpoint", help="solver checkpoint file (schur solver: resume if present)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="solve on the CPU instead of the CUDA card")
+    return ap
+
+
+def cli(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+    device = "cpu" if args.cpu else None
+    if args.batch:
+        return batch(args.batch, plot=not args.no_plots, cfg=args.cfg, solver=args.solver,
+                     device=device)
+    return main(
+        args.folder,
+        plot=not args.no_plots,
+        cfg=args.cfg,
+        solver=args.solver,
+        out_dir=args.out_dir,
+        checkpoint=args.checkpoint,
+        devices=args.devices,
+        blocks=args.blocks,
+        device=device,
+    )
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

@@ -5,24 +5,21 @@ Replaces the reference's per-observation linear string searches
 static integer index arrays, the form every downstream kernel consumes
 (gathers/segment-sums over ``obs_img / obs_cam / obs_pt``).
 
-A numpy copy of fish_eye_bundle_adjustment_tpu/io/problem.py.  The dataset
-readers (io/readers.py) and ``load_problem`` are not ported yet (ROADMAP
-Queue 1); until they are, ``DatasetError`` lives here and problems come
-from ``synth.make_block`` or from ``BAProblem.from_arrays``.
+A numpy copy of fish_eye_bundle_adjustment_tpu/io/problem.py, with
+``BAProblem.from_arrays`` added to carry a problem across the packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from fish_eye_bundle_adjustment_tpu_torch.config import Settings
-
-
-class DatasetError(ValueError):
-    """Raised on missing/ambiguous/malformed dataset files."""
+from fish_eye_bundle_adjustment_tpu_torch.config import Settings, load_settings
+from fish_eye_bundle_adjustment_tpu_torch.io import readers
+from fish_eye_bundle_adjustment_tpu_torch.io.readers import DatasetError
 
 
 @dataclasses.dataclass
@@ -150,18 +147,16 @@ def _index_map(keys: List[str], kind: str, path) -> Dict[str, int]:
 
 
 def build_problem(
-    pho,
-    ext,
-    cnt,
-    int_,
+    pho: readers.PhoData,
+    ext: readers.ExtData,
+    cnt: readers.CntData,
+    int_: readers.IntData,
     tie_ids: Optional[List[str]],
     settings: Settings,
-    cze=None,
+    cze: Optional[readers.CntData] = None,
 ) -> BAProblem:
     """Join parsed files into a BAProblem (the reference's points-struct
-    build, main.m:280-378, vectorized).  `pho`, `ext`, `cnt`, `int_` and
-    `cze` are the parsed-file records of the JAX package's io/readers.py
-    (PhoData, ExtData, CntData, IntData)."""
+    build, main.m:280-378, vectorized)."""
     img_map = _index_map(ext.image_ids, "image", ".ext")
     cam_map = _index_map(int_.camera_ids, "camera", ".int")
     tgt_map = _index_map(cnt.target_ids, "target", ".cnt")
@@ -233,3 +228,38 @@ def build_problem(
         cze_ids=list(cze.target_ids) if cze is not None else None,
         cze_xyz=cze.xyz.copy() if cze is not None else None,
     )
+
+
+def load_problem(folder, settings: Optional[Settings] = None,
+                 fallback_cfg: Optional[Path] = None) -> BAProblem:
+    """Discover + parse + join a dataset folder (the reference's L0+L1,
+    main.m:51-384). `fallback_cfg` mirrors batch mode's project-dir config
+    fallback (main.m:76-85)."""
+    folder = Path(folder)
+    files = readers.discover_dataset(folder)
+    if settings is None:
+        cfg = readers.find_optional(folder, ".cfg") or fallback_cfg
+        if cfg is None:
+            raise DatasetError(f"no .cfg in {folder} and no fallback config given")
+        settings = load_settings(cfg, default_output_stem=folder.resolve().name)
+
+    pho = readers.read_pho(files[".pho"])
+    ext = readers.read_ext(files[".ext"])
+    cnt = readers.read_cnt(files[".cnt"])
+    int_ = readers.read_int(files[".int"], settings.num_radial_distortions)
+
+    tie_ids = None
+    if settings.estimate_tie and not settings.estimate_all_gcp:
+        tie_path = readers.find_optional(folder, ".tie")
+        if tie_path is None:
+            raise DatasetError(f"Estimate_tie=1 but no .tie file in {folder}")
+        tie_ids = readers.read_tie(tie_path)
+
+    cze = None
+    if settings.check_points:
+        cze_path = readers.find_optional(folder, ".cze")
+        if cze_path is None:
+            raise DatasetError(f"Check_Points=1 but no .cze file in {folder}")
+        cze = readers.read_cze(cze_path)
+
+    return build_problem(pho, ext, cnt, int_, tie_ids, settings, cze)

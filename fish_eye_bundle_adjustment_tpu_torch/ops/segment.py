@@ -13,6 +13,13 @@ permutation into its own sorted order followed by the same reduction: one
 gather instead of one scatter.  ``SortPlan`` is that secondary axis on its
 own, for any id column.
 
+``DirectPlan`` sums float32 segments directly instead: each segment's
+rows added in one fixed order by the span segment sum (K3's kernel,
+ops/streamseg.py), after one static gather into that order.  A prefix
+difference loses in float32 the low bits of a segment whose sum is small
+beside the prefix; a direct sum keeps them, as the JAX package's
+scatter-add does where it sums directly.
+
 Gathers only: ``index_add_`` and ``scatter_add_`` take float atomics on
 CUDA, so their sums change from run to run; these repeat bit for bit.
 The layouts are built once on the host (numpy) and live on the stream's
@@ -22,11 +29,21 @@ device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.ops.prefix import CHUNK, chunk_prefix
+from fish_eye_bundle_adjustment_tpu_torch.ops.streamseg import (
+    GroupedSegPlan,
+    sorted_segment_sum_streaming,
+)
+
+# rows a DirectPlan group spans on average: the span kernel runs one CTA per
+# group, so small segments (ties) are grouped up to 128 a CTA and large
+# ones (images, cameras) take one each
+SPAN_ROWS = 1024
 
 
 @dataclasses.dataclass
@@ -136,3 +153,46 @@ class DualAxisPlan:
 
     def primary_sum(self, vals):
         return sorted_segment_sum(vals, self.primary)
+
+
+@dataclasses.dataclass
+class DirectPlan:
+    """Direct float32 segment sums by one id column of a stream: a static
+    gather into (id, rank) order -- None where the stream is in it already
+    -- and the GroupedSegPlan of the gathered ids, whose span segment sum
+    adds each segment's rows in rank order.  With `rank` the position of
+    each row in another stream, each sum adds its rows in the order a
+    serial scatter-add over that stream adds them.  Rows whose id is
+    n_seg or more (padding, or a segment no caller reads) sort last and
+    are not read: the kernel's time is its slowest group's, and one large
+    group of such rows would set it.
+
+    Group size: M segments a group, M = SPAN_ROWS * n_seg / N clamped to
+    [1, 128].  The span kernel's shared memory, 5,248 + 4 * M * D bytes,
+    stays under the H100's 232,448 up to D = 443 columns at M = 128; the
+    widest sum the solver takes is 55 (the IOP preconditioner blocks at 10
+    IOPs).  A group's span is not bounded: the CUDA kernel reads each
+    group's rows from its first, so the TPU kernel's bound on the aligned
+    span (max_T) does not apply."""
+
+    perm: Optional[torch.Tensor]  # (N,) int64 sorted position -> stream row
+    plan: GroupedSegPlan
+
+    @staticmethod
+    def build(ids: np.ndarray, n_seg: int, rank: np.ndarray, device="cpu") -> "DirectPlan":
+        ids = np.asarray(ids)
+        n = ids.shape[0]
+        perm = np.lexsort((np.asarray(rank), ids))
+        starts = np.searchsorted(ids[perm], np.arange(n_seg + 1)).astype(np.int64)
+        M = int(np.clip(SPAN_ROWS * n_seg // max(n, 1), 1, 128))
+        plan = GroupedSegPlan.build(starts[:-1], starts[1:], M=M,
+                                    max_T=-(-(n + 256) // 128) * 128)
+        if np.array_equal(perm, np.arange(n)):
+            return DirectPlan(None, plan)
+        return DirectPlan(torch.as_tensor(perm.astype(np.int64), device=device), plan)
+
+    def sum(self, vals):
+        """vals (N, D) float32 in stream order -> (n_seg, D) sums per id."""
+        if self.perm is not None:
+            vals = vals[self.perm]
+        return sorted_segment_sum_streaming(vals, self.plan)

@@ -21,10 +21,16 @@ paths compute the same operator:
   pass of the fused banded operator (ops/fusedmv.py);
 - unfused (float64, and every float32 block the fused path refuses): each
   pass is gathers, per-observation block products and segment sums over
-  the observation stream (ops/segment.py, whose chunk prefix is the K4
-  kernel of ops/prefix.py) of the tie-sorted stream: by tie directly, by
-  image and camera through static permutations built once on the host;
-  nothing scatters, so no float atomics and runs repeat bit for bit.
+  the observation stream (ops/segment.py), by tie, image and camera.  The
+  sums follow the JAX package's: where it takes prefix differences
+  (obs_order="tie", a DualAxisPlan over the tie-sorted stream, by tie
+  directly and by image through a static permutation) the port does too,
+  over the K4 chunk prefix of ops/prefix.py; where it scatter-adds (the
+  tie and image sums at obs_order "img" or None, the camera sums of
+  several cameras) a float32 stream is summed directly, in the scatter's
+  order, by the span segment sum of ops/streamseg.py (DirectPlan), and a
+  float64 one keeps the prefix differences, which hold it to 1e-9.
+  Nothing scatters, so no float atomics and runs repeat bit for bit.
 
 The kernels run on the card; CPU tensors take their plain PyTorch
 versions.  Free-network datum (Inner_Constraints): CG runs projected
@@ -61,6 +67,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops.fusedmv import (
 )
 from fish_eye_bundle_adjustment_tpu_torch.ops.segment import (
     CHUNK,
+    DirectPlan,
     DualAxisPlan,
     SortPlan,
 )
@@ -68,7 +75,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.constraints import (
     build_G,
     validate_inner_constraints,
 )
-from fish_eye_bundle_adjustment_tpu_torch.solver.dense import DenseResult
+from fish_eye_bundle_adjustment_tpu_torch.solver.dense import DenseResult, resolve_device
 from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as ckpt_mod
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
@@ -176,24 +183,35 @@ class ObsData:
     iop_scale_cam: torch.Tensor  # (n_cam, 3+nk+2) distortion conditioning
     # host observation order of the stream's first n_obs rows
     order: np.ndarray
-    # tie-sorted stream (unfused): tie axis primary, image axis secondary
+    # prefix-difference tie and image sums (unfused, obs_order "tie" or
+    # float64): the tie-sorted stream, tie axis primary, image secondary
     plan: Optional[DualAxisPlan] = None
     # banded-stream structure for the fused kernels; `tie` then holds RANKs
     band: Optional[BandArrays] = None
-    # per-camera sums of the unfused stream when n_cam > 1
-    by_cam: Optional[SortPlan] = None
+    # direct tie and image sums (unfused float32 at obs_order "img"/None)
+    by_tie: Optional[DirectPlan] = None
+    by_img: Optional[DirectPlan] = None
+    # per-camera sums of the unfused stream when n_cam > 1: direct in
+    # float32, prefix differences in float64
+    by_cam: Optional[SortPlan | DirectPlan] = None
 
     @staticmethod
     def from_problem(problem: BAProblem, layout: ParamLayout, band_plan=None,
-                     dtype=np.float32, device="cpu") -> "ObsData":
+                     dtype=np.float32, device="cpu", obs_order="tie") -> "ObsData":
         """With `band_plan`: the stream sorted by tie RANK (tie ids
         relabeled to ranks) and padded to the plan's n_pad, with the
-        BandArrays attached.  Without one, the unfused path's stream: in
-        sort_order_by_tie order with a DualAxisPlan, padded once to a
-        multiple of the segment sums' CHUNK so no reduction pads again.
-        Padding rows have zero weight and the dummy tie slot; the unfused
-        ones repeat the last row's image, point and coordinates, so their
-        (ignored) residuals stay finite."""
+        BandArrays attached.  Without one, the unfused path's stream,
+        padded once to a multiple of the segment sums' CHUNK so no
+        reduction pads again: in sort_order_by_tie order with a
+        DualAxisPlan; or, in float32 with `obs_order` other than "tie",
+        image-major in problem order, as the JAX package's stream, with
+        DirectPlans that add each tie's and each image's rows in problem
+        order, the order of its scatter-add.  Several cameras add a
+        camera plan: in float32 a DirectPlan in the order of the JAX
+        package's stream, in float64 a SortPlan.  Padding rows have zero
+        weight and the dummy tie slot; the unfused ones repeat the last
+        row's image, point and coordinates, so their (ignored) residuals
+        stay finite."""
         n = problem.n_obs
         tie = problem.target_tie_slot[problem.obs_pt]
         # control obs, and every obs when the tie points are held fixed
@@ -212,7 +230,13 @@ class ObsData:
             band = BandArrays.from_plan(band_plan, device)
             mode = "constant"
         else:
-            order = ObsData.sort_order_by_tie(problem, layout)
+            # the span segment sum takes float32 only
+            direct = np.dtype(dtype) == np.float32
+            by_img = direct and obs_order != "tie"
+            if by_img:
+                order = np.argsort(problem.obs_img, kind="stable")
+            else:
+                order = ObsData.sort_order_by_tie(problem, layout)
             pad = -n % CHUNK
             mode = "edge"
 
@@ -232,11 +256,28 @@ class ObsData:
         cam_h = _host(problem.obs_cam.astype(np.int64))
         plans = {}
         if band is None:
-            plans["plan"] = DualAxisPlan.build(
-                tie_h, layout.n_tie + 1, img_h, layout.n_img, device
-            )
+            # each row's position in the JAX package's stream: problem
+            # order, or its tie-sorted order (this stream's own)
+            rank = (np.concatenate([order, n + np.arange(pad)]) if by_img
+                    else np.arange(n + pad))
+            # the direct sums read no padding row, and no row of the dummy
+            # tie slot, whose sum no caller reads: their ids are past the
+            # last segment
+            live = np.arange(n + pad) < n
+            if by_img:
+                plans["by_tie"] = DirectPlan.build(tie_h, layout.n_tie, rank, device)
+                plans["by_img"] = DirectPlan.build(
+                    np.where(live, img_h, layout.n_img), layout.n_img, rank, device)
+            else:
+                plans["plan"] = DualAxisPlan.build(
+                    tie_h, layout.n_tie + 1, img_h, layout.n_img, device
+                )
             if problem.n_cam > 1:
-                plans["by_cam"] = SortPlan.build(cam_h, problem.n_cam, device)
+                plans["by_cam"] = (
+                    DirectPlan.build(np.where(live, cam_h, problem.n_cam),
+                                     problem.n_cam, rank, device) if direct
+                    else SortPlan.build(cam_h, problem.n_cam, device)
+                )
         return ObsData(
             img=on_dev(img_h),
             cam=on_dev(cam_h),
@@ -259,14 +300,19 @@ class ObsData:
         tie = np.where(tie >= 0, tie, layout.n_tie)
         return np.argsort(tie, kind="stable")
 
-    # -- the unfused path's reductions (sorted segment sums) -------------
+    # -- the unfused path's reductions (segment sums) --------------------
     def tie_sum(self, vals):
-        """(n, D) -> (n_tie + 1, D) per-tie sums; the last row holds the
-        control observations (and the padding)."""
+        """(n, D) -> per-tie sums, (n_tie, D); the prefix sums add a last
+        row, of the control observations and the padding, which callers
+        drop."""
+        if self.plan is None:
+            return self.by_tie.sum(vals)
         return self.plan.primary_sum(vals)
 
     def img_sum(self, vals):
         """(n, D) -> (n_img, D) per-image sums."""
+        if self.plan is None:
+            return self.by_img.sum(vals)
         return self.plan.secondary_sum(vals)
 
     def cam_sum(self, vals):
@@ -290,8 +336,9 @@ class SchurOptions:
     camera_damping: float = 0.0  # optional LM damping on the reduced system
     dtype: np.dtype = np.float64
     # None | "img" | "tie": picks the path as in the JAX package (the fused
-    # operator and the explicit-S auto gate need "tie"); the unfused stream
-    # is tie-sorted whatever it says
+    # operator and the explicit-S auto gate need "tie") and, on the unfused
+    # float32 path, the order and the form of the tie and image sums (see
+    # ObsData.from_problem)
     obs_order: Optional[str] = "tie"
     # explicit dense reduced camera system (solver/explicit.py, not ported)
     explicit_s: Optional[bool] = None
@@ -1281,17 +1328,6 @@ def uses_explicit_s(problem, layout, opts: SchurOptions) -> bool:
     return bool(explicit) and layout.n_eop > 0 and layout.n_tie > 0
 
 
-def _resolve_device(device=None) -> torch.device:
-    """`device` or, when None, "cuda" -- which must then exist."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "solve_schur: no CUDA device available; pass device='cpu' to run "
-            "the plain PyTorch versions of the kernels"
-        )
-    return dev
-
-
 def solve_schur(
     problem: BAProblem,
     options: Optional[SchurOptions] = None,
@@ -1322,7 +1358,7 @@ def solve_schur(
         raise _not_ported("explicit", "explicit_s=True")
     if opts.device_loop:
         raise _not_ported("device_loop", "device_loop=True")
-    dev = _resolve_device(device)
+    dev = resolve_device(device, "solve_schur")
     settings = problem.settings
     layout = ParamLayout(problem)
     use_ic = settings.inner_constraints
@@ -1340,7 +1376,8 @@ def solve_schur(
             "for the matrix-free solve)",
         )
     obs = ObsData.from_problem(
-        problem, layout, band_plan, dtype=opts.dtype, device=dev
+        problem, layout, band_plan, dtype=opts.dtype, device=dev,
+        obs_order=opts.obs_order,
     )
     raw_step = schur_step_fn(kernel, layout, use_ic)
     cg_iterations = []  # 0-d device counts, read once at the end

@@ -1,6 +1,7 @@
 """The port's numpy host modules reproduce the JAX package's exactly:
-the same synthetic problems, band plans, settings and checkpoints (the
-port carries copies, since importing the JAX package imports jax)."""
+the same synthetic problems, band plans, settings, checkpoints, dataset
+readers, native parser and loaded problems (the port carries copies, since
+importing the JAX package imports jax)."""
 
 import dataclasses
 import subprocess
@@ -12,10 +13,14 @@ import pytest
 
 from fish_eye_bundle_adjustment_tpu import config as jconfig
 from fish_eye_bundle_adjustment_tpu import synth as jsynth
+from fish_eye_bundle_adjustment_tpu.io import problem as jproblem
 from fish_eye_bundle_adjustment_tpu.ops import bandplan as jbandplan
 from fish_eye_bundle_adjustment_tpu.utils import checkpoint as jckpt
 from fish_eye_bundle_adjustment_tpu_torch import config as tconfig
 from fish_eye_bundle_adjustment_tpu_torch import synth as tsynth
+from fish_eye_bundle_adjustment_tpu_torch.io import native as tnative
+from fish_eye_bundle_adjustment_tpu_torch.io import problem as tproblem
+from fish_eye_bundle_adjustment_tpu_torch.io import readers as treaders
 from fish_eye_bundle_adjustment_tpu_torch.io.problem import BAProblem
 from fish_eye_bundle_adjustment_tpu_torch.ops import bandplan as tbandplan
 from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as tckpt
@@ -118,8 +123,9 @@ def test_checkpoint_written_by_one_package_loads_in_the_other(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the solver included), chip_smoke.py
-    and the bench twins (bench_torch_*.py) in a fresh interpreter leaves jax
+    """Importing every module of the port (the solvers, the io readers and
+    native parser, the reports, plots and CLI included), chip_smoke.py and
+    the bench twins (bench_torch_*.py) in a fresh interpreter leaves jax
     out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -127,6 +133,10 @@ def test_port_imports_no_jax():
         "import fish_eye_bundle_adjustment_tpu_torch.solver.schur\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import fish_eye_bundle_adjustment_tpu_torch.cli\n"
+        "import fish_eye_bundle_adjustment_tpu_torch.solver.dense\n"
+        "import fish_eye_bundle_adjustment_tpu_torch.io.native\n"
+        "import fish_eye_bundle_adjustment_tpu_torch.report.plots\n"
         "import chip_smoke, bench_torch_streamseg, bench_torch_pallas_gather\n"
         "import bench_torch_pallas_onehot, bench_torch_fusedmv\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -139,3 +149,70 @@ def test_port_imports_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+JAX_PKG = REPO / "fish_eye_bundle_adjustment_tpu"
+PORT_PKG = REPO / "fish_eye_bundle_adjustment_tpu_torch"
+
+
+def _renamed(text):
+    return text.replace("fish_eye_bundle_adjustment_tpu.", "fish_eye_bundle_adjustment_tpu_torch.")
+
+
+@pytest.mark.parametrize("path", ["io/readers.py", "io/native.py", "io/__init__.py"])
+def test_copied_io_modules_equal_jax(path):
+    """The port's dataset readers and native-parser bindings are the JAX
+    package's text, with the package name changed."""
+    want = _renamed((JAX_PKG / path).read_text())
+    assert (PORT_PKG / path).read_text() == want
+
+
+def test_native_source_and_load_problem_equal_jax():
+    """feba_io.cpp is the JAX package's file byte for byte; load_problem
+    is the JAX package's function with the package name changed; the
+    port builds its parser into its own cache, never the JAX package's."""
+    import inspect
+
+    src = "native/feba_io.cpp"
+    assert (PORT_PKG / src).read_bytes() == (JAX_PKG / src).read_bytes()
+    assert inspect.getsource(tproblem.load_problem) == _renamed(
+        inspect.getsource(jproblem.load_problem))
+    assert tnative._SRC == PORT_PKG / src
+    assert tnative._CACHE_DIR == PORT_PKG / "native" / "_cache"
+    assert tproblem.DatasetError is treaders.DatasetError
+
+
+def _written(tmp_path, name="selfcal16"):
+    blk = jsynth.make_block(model="fisheye", **BLOCKS[name])
+    jsynth.write_block(blk, tmp_path / "ds")
+    return tmp_path / "ds"
+
+
+def test_load_problem_matches_jax(tmp_path):
+    """A dataset written by synth.write_block loads into equal problems
+    (every field, tolerance 0) in both packages."""
+    folder = _written(tmp_path)
+    _assert_same_fields(jproblem.load_problem(folder), tproblem.load_problem(folder))
+    with pytest.raises(treaders.DatasetError, match="no .pho file"):
+        tproblem.load_problem(tmp_path)
+
+
+def test_native_parser_matches_python_reader(tmp_path):
+    """The port's C++ parser (built with g++ into its own cache) reads the
+    .pho and .cnt of a synthetic dataset into exactly what the Python
+    reader makes of them."""
+    if not tnative.available():
+        pytest.skip("no C++ toolchain: the readers use the Python parser")
+    folder = _written(tmp_path)
+    pho = folder / "synth.pho"
+    native = treaders._read_pho_native(pho)
+    plain = treaders._read_pho_python(pho)
+    _assert_same_fields(native, plain)
+    uniq, codes, vals = tnative.parse_idtable(folder / "synth.cnt", 3)
+    ids, xyz = [], []
+    for row in treaders._tokenize(folder / "synth.cnt"):
+        ids.append(row[0])
+        xyz.append([float(v) for v in row[1:4]])
+    assert [uniq[i] for i in codes] == ids
+    assert np.array_equal(vals, np.asarray(xyz))
+    assert Path(tnative._lib._name).parent == PORT_PKG / "native" / "_cache"

@@ -28,6 +28,8 @@ import jax.numpy as jnp
 from fish_eye_bundle_adjustment_tpu.solver import schur as jschur
 from fish_eye_bundle_adjustment_tpu.utils.layout import ParamLayout as JLayout
 from fish_eye_bundle_adjustment_tpu_torch.ops import prefix as tprefix
+from fish_eye_bundle_adjustment_tpu_torch.ops import segment as tsegment
+from fish_eye_bundle_adjustment_tpu_torch.ops import streamseg as tstreamseg
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur as tschur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
@@ -98,6 +100,7 @@ def _jax_solve(name, dtype, settings=(), opts=(), loop=(), inputs=None, x0=None)
 
 def _port_solve(problem, dtype, opts=()):
     tprefix.reset_counts()
+    tstreamseg.reset_counts()
     tschur.reset_cg_counts()
     res = tschur.solve_schur(
         to_port(problem), _opts(tschur, dtype, **dict(opts)),
@@ -106,20 +109,29 @@ def _port_solve(problem, dtype, opts=()):
     return res
 
 
-def _assert_k4_count(res):
+def _assert_k4_count(res, direct=False):
     """Single-camera blocks: sym6 + dcc in linearize, 2 in the reduced rhs,
     1 for the pose preconditioner and the back-substitution, 2 per CG
-    matvec -- all through the chunk prefix, here its plain version.  CG
-    runs masked blocks of 8 iterations at cg_maxiter = 500, one host
-    check before each and one that stops: 8 matvecs per check but the
-    last, each block at least as long as the iterations it took."""
+    matvec -- all through the chunk prefix, here its plain version, or
+    with `direct` (float32 at obs_order "img") all through the span
+    segment sum's plain version and none through the prefix.  Several
+    self-calibrating cameras add the camera sums of dcc, the reduced rhs
+    and the IOP preconditioner, and one per matvec.  CG runs
+    masked blocks of 8 iterations at cg_maxiter = 500, one host check
+    before each and one that stops: 8 matvecs per check but the last,
+    each block at least as long as the iterations it took."""
     cg = res.cg_iterations
     cgc = tschur.cg_counts
     matvecs = 8 * (cgc["host_reads"] - cgc["calls"])
     assert cgc["calls"] == len(cg) and cgc["matvecs"] == matvecs
     assert sum(cg) <= matvecs <= sum(cg) + 8 * len(cg)
-    assert tprefix.plain_calls["chunk_prefix"] == 6 * len(cg) + 2 * matvecs
+    sums = (tstreamseg.plain_calls["span_segment_sum"] if direct
+            else tprefix.plain_calls["chunk_prefix"])
+    per_step, per_mv = (9, 3) if res.problem.n_cam > 1 else (6, 2)
+    assert sums == per_step * len(cg) + per_mv * matvecs
+    assert tprefix.plain_calls["chunk_prefix"] == (0 if direct else sums)
     assert tprefix.kernel_launches["chunk_prefix"] == 0
+    assert tstreamseg.kernel_launches["span_segment_sum"] == 0
 
 
 def _assert_same_result(got, want, dtype):
@@ -209,7 +221,7 @@ def _port_step(problem, opts):
     tp = to_port(problem)
     tl = TLayout(tp)
     to = _opts(tschur, np.float32, **dict(opts))
-    tobs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32)
+    tobs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32, obs_order=to.obs_order)
     tstep = tschur.schur_step_fn(tschur.SchurKernel(tl, to), tl,
                                  tp.settings.inner_constraints)
     return lambda x, tol, lam: int(tstep(torch.tensor(x), tobs, tol, lam)[4])
@@ -238,7 +250,7 @@ def test_solve_matches_jax_f32(case):
     got = _port_solve(problem, np.float32, opts)
     _assert_same_result(got, want, np.float32)
     assert len(got.cg_iterations) == len(want_cg)
-    _assert_k4_count(got)
+    _assert_k4_count(got, direct=dict(opts).get("obs_order", "tie") != "tie")
     step = _port_step(problem, opts)
     cg = [step(x, tol, lam) for x, tol, lam in inputs]
     assert all(abs(g - w) <= 2 for g, w in zip(cg, want_cg))
@@ -366,3 +378,84 @@ def test_unfused_problem_without_tie_points():
     assert got.layout.n_tie == 0
     _assert_same_result(got, want, np.float64)
     assert got.cg_iterations == want_cg
+
+
+def test_gn_step_img_three_cameras_f32():
+    """One float32 GN step at obs_order="img" of the 3-camera
+    self-calibrating block, from the initial point at the first step's
+    inputs (cg_tol 1e-2, lambda 0): direct tie, image and camera sums on
+    both sides.  x within X_TOL of the JAX step, the same CG count, the
+    step statistics within 1e-4 relative.  (The prefix differences the
+    port took before put this step past X_TOL from the JAX step.  Later
+    steps of this block, at 40 and more CG iterations, lie past X_TOL
+    from JAX's whichever sums the port takes: f32 CG on this
+    ill-conditioned block amplifies any rounding.)"""
+    opts = (("obs_order", "img"),)
+    jstep, jobs, jl, _, _ = _jax_step("cam3_12", np.float32, (), opts)
+    x0 = jl.initial().astype(np.float32)
+    want = jstep(jnp.asarray(x0), jobs, jnp.float32(1e-2), jnp.float32(0.0), None)
+    tp = to_port(jax_block("cam3_12"))
+    tl = TLayout(tp)
+    to = _opts(tschur, np.float32, **dict(opts))
+    tobs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32, obs_order="img")
+    assert tobs.plan is None and isinstance(tobs.by_cam, tsegment.DirectPlan)
+    got = tschur.schur_step_fn(tschur.SchurKernel(tl, to), tl, False)(
+        torch.from_numpy(x0), tobs, 1e-2, 0.0
+    )
+    x_w, l1_w, _, stats_w, it_w = (np.asarray(w) for w in want)
+    x_g, l1_g, _, stats_g, it_g = got
+    np.testing.assert_allclose(x_g.numpy(), x_w, **F32_X_TOL)
+    np.testing.assert_allclose(stats_g.numpy(), stats_w, rtol=1e-4)
+    assert int(it_g) == int(it_w)
+
+
+@pytest.mark.parametrize("axis", ["tie", "img", "cam"])
+def test_direct_sums_match_jax_scatter(axis):
+    """Float32 at obs_order="img" on the 3-camera block: the port's per-tie,
+    per-image and per-camera sums of one (N, 6) stream (values in [1, 2))
+    against a float64 truth.  The JAX package scatter-adds them in problem
+    order; the port's error must be no larger than that scatter's (factor
+    1; on the CPU the plain version adds the rows in the same order, so the
+    sums are bitwise equal).  Control on the same inputs: the prefix
+    differences of a tie-sorted DualAxisPlan, the port's sums before the
+    direct ones, exceed the scatter's error on the tie and image axes.  On
+    the camera axis (~280 rows a camera) a prefix difference is no worse
+    than the serial scatter, so there the direct sum is for the JAX
+    package's order only."""
+    jp = jax_block("cam3_12")
+    tp = to_port(jp)
+    tl = TLayout(tp)
+    obs = tschur.ObsData.from_problem(tp, tl, dtype=np.float32, obs_order="img")
+    assert obs.plan is None and obs.by_cam is not None
+    n, d = tp.n_obs, 6
+    vals = (1 + np.random.default_rng(0).random((n, d))).astype(np.float32)
+    stream = np.zeros((obs.W.shape[0], d), np.float32)
+    stream[:n] = vals[obs.order]
+    tie = jp.target_tie_slot[jp.obs_pt]
+    tie = np.where(tie >= 0, tie, tl.n_tie)
+    ids, n_seg, got = {
+        "tie": (tie, tl.n_tie + 1, obs.tie_sum),
+        "img": (jp.obs_img, tl.n_img, obs.img_sum),
+        "cam": (jp.obs_cam, tp.n_cam, obs.cam_sum),
+    }[axis]
+    # the sums the solver reads: every tie but the dummy slot of the
+    # control observations, every image, every camera
+    keep = tl.n_tie if axis == "tie" else n_seg
+    truth = np.zeros((n_seg, d))
+    np.add.at(truth, ids, vals.astype(np.float64))
+    truth = truth[:keep]
+    jax_sum = np.asarray(jnp.zeros((n_seg, d), jnp.float32).at[jnp.asarray(ids)].add(vals))[:keep]
+    port_sum = got(torch.from_numpy(stream)).numpy()[:keep]
+    err = lambda s: float(np.abs(s - truth).max())
+    assert err(port_sum) <= 1.0 * err(jax_sum)
+    assert np.array_equal(port_sum, jax_sum)
+    # the parent's form: prefix differences over the tie-sorted stream
+    order = tschur.ObsData.sort_order_by_tie(tp, tl)
+    plan = tsegment.DualAxisPlan.build(tie[order], tl.n_tie + 1, jp.obs_img[order], tl.n_img)
+    prefix = {"tie": plan.primary_sum, "img": plan.secondary_sum,
+              "cam": tsegment.SortPlan.build(jp.obs_cam[order], tp.n_cam).sum}[axis]
+    prefix_sum = prefix(torch.from_numpy(vals[order])).numpy()[:keep]
+    if axis == "cam":
+        assert err(prefix_sum) <= err(jax_sum)
+    else:
+        assert err(prefix_sum) > err(jax_sum)

@@ -174,3 +174,34 @@ def test_span_sum_without_16_byte_loads(variant, name):
     out = torch.empty((r0.shape[0], S, D), device=dev)
     got = _run_twice(src, ids, r0, r1, s0, out)
     assert _rel(got, _plain(vals, ids, r0, r1, s0, S)) <= TOL
+
+
+@pytest.mark.parametrize("n_seg, rows, d", [
+    (20_000, 10, 3),    # ties: ~10 rows each, up to 128 a CTA
+    (1_000, 1_000, 6),  # images: one a CTA
+    (1_000, 1_000, 21),  # the pose preconditioner's symmetric blocks
+    (3, 30_000, 55),    # cameras: the IOP preconditioner's blocks at 10 IOPs
+])
+def test_direct_plan_on_the_card(n_seg, rows, d):
+    """ops/segment.DirectPlan (the unfused float32 path's direct sums):
+    the span segment sum over a stream gathered into (id, rank) order, on
+    the card against the same plan's plain version on the CPU (an in-order
+    index_add_): relative norm <= 1e-5, bitwise repeatable."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops.segment import DirectPlan
+
+    dev = _card()
+    rng = np.random.default_rng(n_seg + d)
+    n = n_seg * rows
+    ids = rng.integers(0, n_seg, n)
+    rank = rng.permutation(n)
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    want = DirectPlan.build(ids, n_seg, rank).sum(torch.from_numpy(vals))
+    plan = DirectPlan.build(ids, n_seg, rank, dev)
+    v = torch.from_numpy(vals).to(dev)
+    streamseg.reset_counts()
+    got, again = plan.sum(v), plan.sum(v)
+    torch.cuda.synchronize()
+    assert streamseg.kernel_launches["span_segment_sum"] == 2
+    assert torch.equal(got, again)
+    err = float((got.double().cpu() - want.double()).norm() / want.double().norm())
+    assert err <= TOL, err
