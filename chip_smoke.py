@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Drives the port's two paths -- the float32 fused Schur Gauss-Newton
-solve and the float64 unfused one -- on the 1k-image / 100k-point
+Drives the port's two matrix-free paths -- the float32 fused Schur
+Gauss-Newton solve and the float64 unfused one -- on the 1k-image / 100k-point
 self-calibrating fisheye block of bench.py, after building the CUDA
 kernels from ops/csrc and holding each against its plain PyTorch version
 at the block's shapes; then the paths of the JAX package's remaining
 Pallas kernels, its bench scripts, through their twins
 (bench_torch_streamseg.py, bench_torch_pallas_gather.py,
-bench_torch_pallas_onehot.py) at those scripts' sizes.  Imports nothing
-of JAX.  Phases:
+bench_torch_pallas_onehot.py) at those scripts' sizes; then the dense
+CLI, the default solve_schur (the explicit dense S and the stds) and the
+stds at the bench block.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
@@ -42,7 +43,8 @@ of JAX.  Phases:
                    and one that stops), and the launch counts K1 = steps,
                    K2 = 2 * steps + the matvecs CG ran
   7. segment       K4 (chunk_prefix) against its plain version at the
-                   block's stream length, D in {3, 6, 21}, float32 and
+                   block's stream length, D in {3, 6, 21, 36} (36: the
+                   explicit dense S's pair and IOP sums), float32 and
                    float64: relative norm error <= 1e-5 / 1e-12, bitwise
                    repeatable, median times of kernel, plain version and
                    torch.cumsum, the byte bound and the kernel's multiple
@@ -99,6 +101,36 @@ of JAX.  Phases:
                    same iterations); the wall per iteration, peak memory and
                    the device times (CUDA events) of the design assembly,
                    A'PA, the bordered solve and the covariance inverse
+ 14. explicit S    the default solve_schur(problem) -- float64, the
+                   explicit dense S by the auto gate, compute_covariance=
+                   True -- on three 12-image blocks (EOPs, a free network,
+                   three self-calibrating cameras) on the card and on the
+                   CPU (x within rtol=1e-9, atol=1e-7, the same iterations,
+                   stds within 1e-9, both "exact"); then the largest block
+                   the gate sends to explicit S (600 images / 60,000
+                   points, self-calibrating) for 3 GN iterations (depth cut
+                   from a converged solve): n_pairs = sum k(k-1)/2, K4
+                   launches by width (D = 3: 2 * steps, 6: 3 * steps + 1,
+                   18: steps + 1, 36: 3 * steps + 2) and nothing else; S at
+                   the solution symmetric, bitwise repeatable, S v against
+                   the matrix-free operator within 1e-10, ||S Cc - I|| /
+                   sqrt(nc) <= 1e-8; device times of build_dense_S and
+                   the CG's S @ v against their bounds; K4 against its
+                   plain version (phase 7's checks and times) on the
+                   values build_dense_S gives it at the solution: the
+                   pair products (D = 36, the pair stream's length), the
+                   self-pair image sums (D = 36) and the tie IOP sums
+                   (D = 18); the covariance's pieces, its stds and Cc_q
+                   bitwise equal to the solve's own; then a 40-image dataset
+                   above the dense gate (u = 3,627) through cli.main: auto
+                   picks schur, rc 0, sigma0^2 in [0.9, 1.1], numeric stds
+ 15. stds          compute_stds on the bench block at phase 6's x: exact at
+                   max_images=1000 (float64 on the card; its pieces and the
+                   GEMMs' rate), the Hutchinson estimate at 999 (64 probes,
+                   float32, the fused operator): K1 once, K2 once per CG
+                   matvec, no K4 and no plain version; clipped share < 2%,
+                   log-correlation with the exact stds > 0.95; the span
+                   segment sum at the estimator's image-sum shape
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -113,10 +145,13 @@ float32 (outside the tensor cores), 34 TFLOP/s float64 (H100 SXM data
 sheet) -- counted from the kernels' code per observation row (K1, K2,
 K4) or from the function's own arithmetic (phases 10 and 11).  The
 table has one entry per kernel of phases 4-9, one per probe of phases
-10-11 and one for the span segment sum on the solver path (phase 12);
-`replaces` lists the pallas_call sites each stands for.  Phase 13 adds no
-kernel: the dense path's products, solve and inverse are torch.matmul and
-torch.linalg, as the JAX package leaves them to XLA.
+10-11, one for the span segment sum on the solver path (phase 12), K4 on
+the explicit S's pair products and tie IOP sums (phase 14), and K1, K2
+and the span segment sum on the estimator's path (phase 15); `replaces`
+lists the pallas_call sites each stands for.  Phase 13 adds no kernel:
+the dense path's products, solve and inverse are torch.matmul and
+torch.linalg, as the JAX package leaves them to XLA; so are the explicit
+path's S @ v and the covariance's GEMMs and inverse.
 """
 
 import contextlib
@@ -144,7 +179,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import (
 from fish_eye_bundle_adjustment_tpu_torch import cli
 from fish_eye_bundle_adjustment_tpu_torch.io.problem import load_problem
 from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import build_band_plan
-from fish_eye_bundle_adjustment_tpu_torch.solver import dense, schur
+from fish_eye_bundle_adjustment_tpu_torch.solver import covariance, dense, explicit, schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block, write_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
     HBM_BYTES_PER_S, Probe, bound, cuda_ms, line, measure, rel_norm,
@@ -420,7 +455,38 @@ def phase_main_path(p, layout, plan, dev):
         raise RuntimeError("[6 main] FAIL: a plain version ran on the main path")
     if k4:
         raise RuntimeError(f"[6 main] FAIL: the fused path ran the chunk prefix {k4} times")
-    return counts
+    return counts, res
+
+
+def _k4_check(tag, name, vals):
+    """K4 on `vals` (N, D), N whole chunks, against its plain version:
+    relative norm error of the local prefix and of the chunk totals
+    within PREFIX_TOL, bitwise repeatable; median times of the kernel,
+    the plain version and torch.cumsum on the same input, the bound."""
+    n, d = vals.shape
+    got, tot = prefix.chunk_prefix(vals)
+    again, _ = prefix.chunk_prefix(vals)
+    want, want_tot = prefix.chunk_prefix_ref(vals)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"[{tag}] FAIL: K4 {name} is not bitwise repeatable")
+    diff = (got - want).double()
+    rel = float(diff.norm() / want.double().norm())
+    rel_tot = float((tot - want_tot).double().norm() / want_tot.double().norm())
+    max_abs = float(diff.abs().max())
+    del got, again, want, diff
+    ms = cuda_ms(lambda: prefix.chunk_prefix(vals))
+    plain_ms = cuda_ms(lambda: prefix.chunk_prefix_ref(vals))
+    library_ms = cuda_ms(lambda: torch.cumsum(vals.view(-1, prefix.CHUNK, d), dim=1))
+    bound_ms, bound_by = bound((vals, vals), vals.numel(), vals.dtype)
+    print(f"[{tag}] K4 {name}: N={n} D={d} {str(vals.dtype).split('.')[-1]} rel err {rel:.2e} "
+          f"(totals {rel_tot:.2e}) max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms torch.cumsum {library_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x)")
+    if not (rel <= PREFIX_TOL[vals.dtype] and rel_tot <= PREFIX_TOL[vals.dtype]):
+        raise RuntimeError(f"[{tag}] FAIL: K4 {name} off its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_segment(p, layout, dev):
@@ -430,32 +496,10 @@ def phase_segment(p, layout, dev):
     rng = np.random.default_rng(1)
     results = {}
     for dtype in (torch.float32, torch.float64):
-        for d in (3, 6, 21):
+        for d in (3, 6, 21, 36):
             vals = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype, device=dev)
-            got, tot = prefix.chunk_prefix(vals)
-            again, _ = prefix.chunk_prefix(vals)
-            want, want_tot = prefix.chunk_prefix_ref(vals)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise RuntimeError(f"[7 segment] FAIL: K4 {dtype} D={d} is not bitwise repeatable")
-            diff = (got - want).double()
-            rel = float(diff.norm() / want.double().norm())
-            rel_tot = float((tot - want_tot).double().norm() / want_tot.double().norm())
-            max_abs = float(diff.abs().max())
-            ms = cuda_ms(lambda: prefix.chunk_prefix(vals))
-            plain_ms = cuda_ms(lambda: prefix.chunk_prefix_ref(vals))
-            library_ms = cuda_ms(lambda: torch.cumsum(vals.view(-1, prefix.CHUNK, d), dim=1))
-            bound_ms, bound_by = bound((vals, got), vals.numel(), dtype)
             name = f"{str(dtype).split('.')[-1]} D={d}"
-            print(f"[7 segment] K4 {name}: N={n} rel err {rel:.2e} (totals {rel_tot:.2e}) "
-                  f"max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.4f} ms "
-                  f"plain {plain_ms:.4f} ms torch.cumsum {library_ms:.4f} ms "
-                  f"bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x)")
-            if not (rel <= PREFIX_TOL[dtype] and rel_tot <= PREFIX_TOL[dtype]):
-                raise RuntimeError(f"[7 segment] FAIL: K4 {name} off its plain version")
-            results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+            results[name] = _k4_check("7 segment", name, vals)
     order = schur.ObsData.sort_order_by_tie(p, layout)
     tie = p.target_tie_slot[p.obs_pt]
     tie = np.where(tie >= 0, tie, layout.n_tie)[order]
@@ -674,7 +718,8 @@ def phase_unfused_img(p, layout, dev):
     problem = dataclasses.replace(
         p, settings=dataclasses.replace(p.settings, iteration_cap=2))
     opts = schur.SchurOptions(dtype=np.float32, obs_order="img", cg_maxiter=40)
-    if schur.make_band_plan(p, layout, opts) is not None or schur.uses_explicit_s(p, layout, opts):
+    if (schur.make_band_plan(p, layout, opts) is not None
+            or schur.make_pair_plan(p, layout, opts) is not None):
         raise RuntimeError("[12 unfused img] FAIL: not the matrix-free unfused path")
 
     def progress(rec):
@@ -849,6 +894,297 @@ def phase_dense_cli(dev, card):
           + f" [{card}]")
 
 
+def _timed_solve(tag, problem, opts, dev, **kw):
+    """solve_schur on the card with every count set to 0 just before it:
+    (result, wall s, peak GiB, K4 launches by width, other kernels'
+    launches, plain calls)."""
+    def progress(rec):
+        print(f"[{tag}] iter {rec.iteration}: L1(delta)={rec.delta_l1:.9g} "
+              f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
+              f"wall={rec.elapsed_s * 1e3:.1f} ms" + ("" if rec.accepted else " REJECTED"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    schur.reset_cg_counts()
+    t0 = time.perf_counter()
+    res = schur.solve_schur(problem, opts, device=dev, progress_fn=progress, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = _read_counts()
+    by_width = dict(sorted(prefix.kernel_launches_by_width.items()))
+    others = {k: v for k, v in launches.items() if v and k != "chunk_prefix"}
+    return res, wall, torch.cuda.max_memory_allocated() / 2**30, by_width, others, plain
+
+
+def _small_blocks():
+    """phase 14's reference blocks: EOPs only, a free network, three
+    self-calibrating cameras (12 images each)."""
+    return {
+        "12-image EOP": dict(n_img=12, n_pts=150, seed=13, control_frac=0.08,
+                             settings_overrides={"inner_constraints": False}),
+        "12-image free network": dict(n_img=12, n_pts=150, seed=5, control_frac=0.0,
+                                      settings_overrides={"inner_constraints": True}),
+        "12-image 3-camera self-calibrating": dict(
+            n_img=12, n_pts=150, n_cams=3, seed=41, control_frac=0.08,
+            settings_overrides={"inner_constraints": False, **SELFCAL}),
+    }
+
+
+def phase_explicit(dev, card):
+    """The default solve_schur (explicit dense S, exact stds): small
+    blocks against the CPU, the 600-image block at full width, the CLI."""
+    # -- 1. reference: the default options on the card and on the CPU
+    for name, kw in _small_blocks().items():
+        problem = make_block(model="fisheye", **kw).problem
+        on_card = schur.solve_schur(problem, device=dev)
+        on_cpu = schur.solve_schur(problem, device="cpu")
+        diff = np.abs(on_card.x - on_cpu.x)
+        viol = float(np.max(diff / (X_TOL_F64["atol"] + X_TOL_F64["rtol"] * np.abs(on_cpu.x))))
+        std_rel = float(np.max(np.abs(on_card.std - on_cpu.std) / on_cpu.std))
+        print(f"[14 explicit ref] {name}: card {on_card.iterations} it ({on_card.stopped_on}) "
+              f"sigma0^2={on_card.sigma02:.9f}, cpu {on_cpu.iterations} it "
+              f"sigma0^2={on_cpu.sigma02:.9f}; x tolerance use {viol:.3g}; std rel "
+              f"{std_rel:.2e}; methods {on_card.std_method}/{on_cpu.std_method}")
+        np.testing.assert_allclose(on_card.x, on_cpu.x, **X_TOL_F64)
+        if not (on_card.iterations == on_cpu.iterations and std_rel <= 1e-9
+                and on_card.std_method == on_cpu.std_method == "exact"):
+            raise RuntimeError(f"[14 explicit ref] FAIL: {name}: the card differs from the CPU")
+
+    # -- 2. full width: the largest block the auto gate sends to explicit S
+    t0 = time.perf_counter()
+    blk = make_block(n_img=600, n_pts=60_000, model="fisheye", seed=2, control_frac=0.01,
+                     settings_overrides={"inner_constraints": False, **SELFCAL})
+    p = blk.problem
+    layout = ParamLayout(p)
+    opts = schur.SchurOptions(cg_maxiter=40)  # float64, explicit_s=None
+    print(f"[14 explicit] block: n_obs={p.n_obs} n_tie={layout.n_tie} u={layout.u} "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+    if schur.make_band_plan(p, layout, opts) is not None or p.n_img > opts.explicit_s_max_images:
+        raise RuntimeError("[14 explicit] FAIL: the auto gate would not pick explicit S")
+    t0 = time.perf_counter()
+    pairs = schur.make_pair_plan(p, layout, opts, dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    kern = schur.SchurKernel(layout, opts)
+    nc, ne = kern.nc, kern.ne
+    tie = p.target_tie_slot[p.obs_pt]
+    k = np.bincount(tie[tie >= 0], minlength=layout.n_tie)
+    want_pairs = int((k * (k - 1) // 2).sum())
+    stream_b = (pairs.pa.numel() * (8 + 8) + pairs.pa.numel() * ne * ne * 8 * 2
+                + 2 * pairs.pa.numel() * ne * 3 * 8)
+    print(f"[14 explicit] PairPlan: {pairs.n_pairs} pairs (sum k(k-1)/2 = {want_pairs}), "
+          f"padded to {pairs.pa.numel()}, {plan_s:.2f} s on the host; the pair stream on "
+          f"the card: indices, two (P, {ne}, 3) gathers, the (P, {ne * ne}) products and "
+          f"their K4 prefix = {stream_b / 1e6:.0f} MB (float64)")
+    if pairs.n_pairs != want_pairs:
+        raise RuntimeError("[14 explicit] FAIL: n_pairs != sum k(k-1)/2")
+
+    problem = dataclasses.replace(p, settings=dataclasses.replace(p.settings, iteration_cap=3))
+    res, wall, peak, by_width, others, plain = _timed_solve(
+        "14 explicit", problem, opts, dev, compute_covariance=True)
+    steps = len(res.cg_iterations)
+    # per step: linearize (tie Hpp D=6, image diag(Hcc) D=6), the reduced
+    # rhs (tie D=3, image D=6), back-substitution (tie D=3), build_dense_S
+    # (self pairs, cross pairs, pose-IOP blocks: D=36; tie IOP sums: D=18);
+    # the covariance once: linearize (D=6), Hcc ee and ei (D=36), the
+    # (tie, camera) IOP sums (D=18).  CG's S @ v is a GEMV: no K4.
+    ni = kern.ni
+    want_width = {3: 2 * steps, 6: 3 * steps + 1, ni * 3: steps + 1, ne * ne: 3 * steps + 2}
+    print(f"[14 explicit] default SchurOptions(cg_maxiter=40), compute_covariance=True: "
+          f"{res.iterations} iterations ({res.stopped_on}), {steps} steps, cg {res.cg_iterations}, "
+          f"sigma0^2={res.sigma02:.9f}, std {res.std_method}, wall {wall:.2f} s, peak mem "
+          f"{peak:.2f} GiB [{card}]")
+    print(f"[14 explicit] K4 launches by width {by_width}, expected {want_width}; other "
+          f"kernels {others}; plain versions called {plain}")
+    if not (res.iterations == 3 and np.isfinite(res.x).all() and np.isfinite(res.sigma02)):
+        raise RuntimeError("[14 explicit] FAIL: not 3 finite iterations")
+    if by_width != want_width or others or plain:
+        raise RuntimeError("[14 explicit] FAIL: launch counts")
+    if not (res.std_method == "exact" and np.isfinite(res.std).all() and (res.std > 0).all()):
+        raise RuntimeError("[14 explicit] FAIL: stds not finite and positive")
+
+    # S at the solution against the matrix-free operator, S Cc = I
+    obs = schur.ObsData.from_problem(p, layout, dtype=np.float64, device=dev)
+    x = torch.as_tensor(res.x, device=dev)
+    fac = kern.linearize(x * layout.scale_like(x), obs)
+    S = explicit.build_dense_S(fac, pairs)
+    S2 = explicit.build_dense_S(fac, pairs)
+    torch.cuda.synchronize()
+    if not torch.equal(S, S2):
+        raise RuntimeError("[14 explicit] FAIL: build_dense_S is not bitwise repeatable")
+    del S2
+    asym = float((S - S.T).norm() / S.norm())
+    rng = np.random.default_rng(4)
+    mv_err = []
+    for _ in range(3):
+        v = torch.as_tensor(rng.standard_normal(nc), device=dev)
+        mv_err.append(rel_norm(S @ v, fac.schur_matvec(v)))
+    Cc = torch.as_tensor(res.Cc_q, device=dev)
+    inv_err = float((S @ Cc - torch.eye(nc, dtype=S.dtype, device=dev)).norm()) / nc ** 0.5
+    del Cc
+    print(f"[14 explicit] S ({nc} x {nc}) at the solution: ||S - S'|| / ||S|| = {asym:.2e}; "
+          f"S v against the matrix-free schur_matvec {max(mv_err):.2e} (3 seeded v); "
+          f"||S Cc - I||_F / sqrt(nc) = {inv_err:.2e}; bitwise repeatable")
+    if not (asym <= 1e-12 and max(mv_err) <= 1e-10 and inv_err <= 1e-8):
+        raise RuntimeError("[14 explicit] FAIL: S disagrees with the operator or Cc")
+
+    # device times of the explicit step's pieces (CUDA events)
+    inputs = (fac.Jex, fac.Jey, fac.Jix, fac.Jiy, fac.Jpx, fac.Jpy, obs.W, fac.Hpi_flat,
+              obs.tie, obs.img, pairs.pa, pairs.pb, pairs.keys.begs, pairs.keys.ends)
+    build_ms = cuda_ms(lambda: explicit.build_dense_S(fac, pairs), reps=5, warmup=1)
+    build_bound, build_by = bound((*inputs, S), 0.0, torch.float64)
+    v = torch.as_tensor(rng.standard_normal(nc), device=dev)
+    gemv_ms = cuda_ms(lambda: S @ v)
+    gemv_bound, gemv_by = bound((S, v, v), 2.0 * nc * nc, torch.float64)
+    print(f"[14 explicit] device ms: build_dense_S {build_ms:.3f} (bound {build_bound:.4f}, "
+          f"{build_by}: the factor streams, the pair indices and S once; "
+          f"{build_ms / build_bound:.0f}x); the CG's S @ v {gemv_ms:.4f} (bound {gemv_bound:.4f}, "
+          f"{gemv_by}: S's {S.numel() * 8 / 1e6:.0f} MB; {gemv_ms / gemv_bound:.2f}x) [{card}]")
+    del S
+
+    # K4 at this path's own shapes, on the values build_dense_S gives it:
+    # the pair products (D = 36, the pair stream's length), the self-pair
+    # image sums (D = 36, in image order) and the tie IOP sums (D = 3 ni)
+    # at the observation stream's length, padded to whole chunks as
+    # sorted_segment_sum pads them
+    def padded(a):
+        return torch.cat([a, a.new_zeros((-a.shape[0] % prefix.CHUNK, a.shape[1]))])
+
+    Mt, _ = explicit.coupling_factors(fac)
+    prod = explicit.abt(Mt[pairs.pa], Mt[pairs.pb]).reshape(-1, ne * ne)
+    k4 = {ne * ne: _k4_check("14 explicit", "pair products", prod)}
+    del prod
+    hcc = explicit.weighted_outer(fac, fac.Jex, fac.Jey, fac.Jex, fac.Jey)
+    _k4_check("14 explicit", "self-pair image sums",
+              padded((hcc - explicit.abt(Mt, Mt)).reshape(-1, ne * ne)[obs.plan.perm]))
+    del hcc
+    Fi = explicit.weighted_outer(fac, fac.Jix, fac.Jiy, fac.Jpx, fac.Jpy)
+    k4[ni * 3] = _k4_check("14 explicit", "tie IOP sums", padded(Fi.reshape(-1, ni * 3)))
+    del Fi, Mt, fac
+    for d, row in k4.items():
+        row["launches"] = by_width[d]
+
+    # covariance pieces at the solution (exact, float64, on the card)
+    pieces = {}
+    t0 = time.perf_counter()
+    cov = covariance.schur_covariance(p, layout, res.x, res.sigma02, device=dev, pieces=pieces)
+    cov_wall = time.perf_counter() - t0
+    _print_pieces("14 explicit", cov_wall, pieces, card)
+    # the solve's own covariance, at the same x and sigma0^2
+    if not (np.array_equal(cov.std, res.std) and np.array_equal(cov.Cc_q, res.Cc_q)):
+        raise RuntimeError("[14 explicit] FAIL: schur_covariance is not bitwise repeatable")
+    print("[14 explicit] schur_covariance bitwise equal to the solve's own (std and Cc_q)")
+
+    # -- 3. the CLI above the dense gate
+    folder = Path("chiprun_out") / "smoke_schur_cli" / "ds"
+    blk = make_block(n_img=40, n_pts=1200, model="fisheye", seed=6, control_frac=0.05,
+                     settings_overrides={"inner_constraints": False, **SELFCAL})
+    shutil.rmtree(folder, ignore_errors=True)
+    write_block(blk, folder)
+    problem = load_problem(folder)
+    picked = cli.pick_solver(problem)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(folder, plot=False)
+    cli_wall = time.perf_counter() - t0
+    text = out.getvalue()
+    report = folder / f"{folder.name}.out"
+    body = report.read_text() if report.exists() else ""
+    found = re.search(r"A-Posteriori\.+([-\d.eE+]+)", body)
+    sigma02 = float(found.group(1)) if found else float("nan")
+    print(f"[14 schur cli] {problem.n_img} images, u={ParamLayout(problem).u}: auto picks "
+          f"{picked}; cli.main rc {rc} in {cli_wall:.2f} s, {text.count('Iteration ')} "
+          f"iterations, sigma0^2 {sigma02:.6f}, stds numeric: {'n/a' not in body}")
+    if not (picked == "schur" and rc == 0 and "Iteration Cap reached" not in text
+            and 0.9 <= sigma02 <= 1.1 and body and "n/a" not in body):
+        raise RuntimeError(f"[14 schur cli] FAIL: rc {rc}\n{text}")
+    return k4
+
+
+def _print_pieces(tag, wall, pieces, card):
+    gemm = pieces.get("gemm", 0.0)
+    rate = pieces.get("gemm_flops", 0.0) / max(gemm, 1e-12) / 1e12
+    parts = ", ".join(f"{k} {v:.3f} s" for k, v in pieces.items() if k != "gemm_flops")
+    print(f"[{tag}] schur_covariance (float64 on the card) wall {wall:.2f} s: {parts}; "
+          f"GEMMs {pieces.get('gemm_flops', 0.0) / 1e12:.2f} TFLOP at {rate:.1f} TFLOP/s [{card}]")
+
+
+def phase_stds(p, layout, main_res, dev, card):
+    """compute_stds at the bench block (1000 images) at phase 6's x and
+    sigma0^2: the exact covariance at the gate's edge, then the Hutchinson
+    estimate past it over K1/K2."""
+    x, sigma02 = main_res.x, main_res.sigma02
+    pieces = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exact, Cc, method = covariance.compute_stds(p, layout, x, sigma02, max_images=1000,
+                                                device=dev, pieces=pieces)
+    exact_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _print_pieces("15 stds", exact_wall, pieces, card)
+    print(f"[15 stds] exact: method {method}, nc={Cc.shape[0]}, peak mem {peak:.2f} GiB")
+    if not (method == "exact" and np.isfinite(exact).all() and (exact > 0).all()):
+        raise RuntimeError("[15 stds] FAIL: the exact stds")
+
+    info = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    schur.reset_cg_counts()
+    t0 = time.perf_counter()
+    est, Cc_est, method_est = covariance.compute_stds(p, layout, x, sigma02, max_images=999,
+                                                      device=dev, info=info)
+    torch.cuda.synchronize()
+    est_wall = time.perf_counter() - t0
+    launches, plain = _read_counts()
+    cgc = dict(schur.cg_counts)
+    its = info["cg_iterations"]
+    live = exact > 0
+    rel = np.abs(est[live] - exact[live]) / exact[live]
+    pos = live & (est > 0)
+    clipped = float((live.sum() - pos.sum()) / live.sum())
+    corr = float(np.corrcoef(np.log(est[pos]), np.log(exact[pos]))[0, 1])
+    print(f"[15 stds] hutchinson (64 probes, float32, fused): wall {est_wall:.2f} s; "
+          f"{cgc['calls']} CG solves, {sum(its)} iterations (mean {np.mean(its):.1f}, "
+          f"max {max(its)}; at the cap of 400: {sum(i >= 400 for i in its)}), "
+          f"{cgc['matvecs']} matvecs; launches {dict((k, v) for k, v in launches.items() if v)}; "
+          f"plain versions called {plain} [{card}]")
+    print(f"[15 stds] against the exact stds: median rel err {np.median(rel):.4f}, q90 "
+          f"{np.quantile(rel, 0.9):.4f} (the JAX test's bounds at 192 probes: 0.06 / 0.15; "
+          f"here 64), clipped {clipped:.4%}, log-correlation {corr:.4f}")
+    if not (method_est == "hutchinson" and Cc_est is None and np.isfinite(est).all()):
+        raise RuntimeError("[15 stds] FAIL: the estimate")
+    if plain or launches["fused_hpp_pass"] != 1 or launches["fused_schur_apply"] != cgc["matvecs"]:
+        raise RuntimeError(f"[15 stds] FAIL: launches {launches}, plain {plain}, CG {cgc}")
+    if launches["chunk_prefix"]:
+        raise RuntimeError("[15 stds] FAIL: the fused estimator ran the chunk prefix")
+    if not (clipped < 0.02 and corr > 0.95):
+        raise RuntimeError(f"[15 stds] FAIL: clipped {clipped}, log-correlation {corr}")
+
+    # the span segment sum at the estimator's shapes: the image sum (D = 6)
+    # of C'b over the banded stream, gathered into image order
+    plan = schur.make_band_plan(p, layout, schur.SchurOptions(dtype=np.float32))
+    obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)._band_sums()
+    direct = obs.by_img
+    n = obs.W.shape[0]
+    live_rows = np.arange(n) < p.n_obs
+    ids = np.where(live_rows, obs.img.cpu().numpy(), layout.n_img)
+    vals = torch.as_tensor(np.random.default_rng(5).standard_normal((n, 6)).astype(np.float32),
+                           device=dev)
+    if direct.perm is not None:
+        perm = direct.perm
+        print(f"[15 stds] C'b image sum: its gather into image order "
+              f"{cuda_ms(lambda: vals[perm]):.4f} ms, then:")
+        vals, ids = vals[perm], ids[perm.cpu().numpy()]
+    rows = direct.plan.n_rows
+    pr = _solver_sum_probe("stds img", vals[:rows], ids[:rows], direct.plan, dev)
+    r = measure(pr, PROBE_TOL)
+    r["launches"] = launches["span_segment_sum"]
+    print(f"[15 stds] M={direct.plan.M} G={direct.plan.G} N={n}: {line(pr, r)} [{card}]")
+    return {k: v for k, v in launches.items() if v}, (pr, r)
+
+
 def main():
     card = phase_environment()
     dev = torch.device("cuda")
@@ -856,7 +1192,7 @@ def main():
     p, layout, opts, plan = phase_block()
     timings = phase_kernels(p, layout, opts, plan, dev)
     phase_reference(dev)
-    counts = phase_main_path(p, layout, plan, dev)
+    counts, main_res = phase_main_path(p, layout, plan, dev)
     seg = phase_segment(p, layout, dev)
     phase_unfused_reference(dev)
     counts.update(phase_unfused_main_path(p, layout, dev))
@@ -869,6 +1205,13 @@ def main():
     t0 = time.perf_counter()
     phase_dense_cli(dev, card)
     print(f"[13 dense cli] phase 13 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    explicit_k4 = phase_explicit(dev, card)
+    print(f"[14 explicit] phase 14 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stds_launches, stds_probe = phase_stds(p, layout, main_res, dev, card)
+    measured.append(stds_probe)
+    print(f"[15 stds] phase 15 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);
@@ -886,6 +1229,27 @@ def main():
         table.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=[REPLACES[name]],
             launches=counts[name], max_abs_err=max(errs[name]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t.get("library_ms"),
+        ))
+    # the kernels of phases 14-15's paths: K4 on the explicit dense S's
+    # pair products (D = 36) and tie IOP sums (D = 3 ni), float64, each
+    # checked and timed at its own shape in phase 14, with the launches of
+    # phase 14's solve at that width; K1 and K2 on the estimator's probe
+    # solves (times of phase 4, the same
+    # kernels at the same block's shapes; launches of phase 15)
+    for d, r in sorted(explicit_k4.items(), reverse=True):
+        table.append(dict(
+            name=f"chunk_prefix/explicit D={d}", route="cuda", source=SOURCES["chunk_prefix"],
+            replaces=[REPLACES["chunk_prefix"]], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    for name in ("fused_hpp_pass", "fused_schur_apply"):
+        t = timings[name if name in timings else f"{name}/matvec_bf16"]
+        table.append(dict(
+            name=f"{name}/stds", route="cuda", source=SOURCES[name], replaces=[REPLACES[name]],
+            launches=stds_launches[name], max_abs_err=max(errs[name]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t.get("library_ms"),
         ))

@@ -11,9 +11,11 @@ BatchRun.m's recursive scan for complete {.pho,.ext,.cnt,.int} sets
 (BatchRun.m:52,68-150) with the project-directory .cfg fallback
 (main.m:76-85).  The solve runs on the CUDA card unless the caller asks
 for the CPU (`device="cpu"`, `--cpu`); without a card and without that
-request it fails.  Solvers: `auto` and `dense` run the dense parity solver;
-`schur` and the scale modes wait for their ROADMAP.md items and raise
-NotImplementedError naming them.
+request it fails.  Solvers: `dense` runs the dense parity solver, `schur`
+the Schur solver with its defaults (float64, the explicit dense reduced
+camera system up to 600 images, the stds of solver/covariance.py), and
+`auto` picks dense at u <= 3000 and schur above; the scale modes wait for
+their ROADMAP.md items and raise NotImplementedError naming them.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ REQUIRED_EXTS = (".pho", ".ext", ".cnt", ".int")
 
 # What each solver outside the port so far waits for (ROADMAP.md Queue 1).
 _NOT_PORTED = {
-    "schur": "solver/explicit.py and solver/covariance.py (ROADMAP.md Queue 1, "
-             "items 5 and 6): the default SchurOptions and the stds the report prints",
     "distributed": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
     "sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
     "fused_sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
@@ -114,6 +114,14 @@ def _solve(problem, solver: str, checkpoint: Optional[str] = None,
         if checkpoint:
             print("note: --checkpoint applies to the schur solver only", file=sys.stderr)
         return solve_dense(problem, keep_history=keep_history, device=device)
+    if solver == "schur":
+        from fish_eye_bundle_adjustment_tpu_torch.solver.schur import solve_schur
+        from fish_eye_bundle_adjustment_tpu_torch.utils.observe import log_progress
+
+        return solve_schur(
+            problem, progress_fn=log_progress, checkpoint_path=checkpoint,
+            keep_history=keep_history, device=device,
+        )
     if solver in _NOT_PORTED:
         raise NotImplementedError(
             f"--solver {solver}: needs {_NOT_PORTED[solver]}, not ported yet"
@@ -173,9 +181,10 @@ def _build_parser() -> argparse.ArgumentParser:
         choices=("auto", "dense", "schur", "distributed", "sharded",
                  "fused_sharded", "posegraph"),
         default="auto",
-        help="dense parity solver, or size-based auto (dense at u <= 3000); "
-             "schur and the scale modes (distributed, sharded, fused_sharded, "
-             "posegraph) are not ported yet and fail naming what they need",
+        help="dense parity solver, Schur solver, or size-based auto (dense at "
+             "u <= 3000, schur above); the scale modes (distributed, sharded, "
+             "fused_sharded, posegraph) are not ported yet and fail naming what "
+             "they need",
     )
     ap.add_argument("--devices", type=int,
                     help="mesh size for --solver distributed/sharded (not ported yet)")

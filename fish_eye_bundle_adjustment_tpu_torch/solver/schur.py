@@ -32,17 +32,21 @@ paths compute the same operator:
   float64 one keeps the prefix differences, which hold it to 1e-9.
   Nothing scatters, so no float atomics and runs repeat bit for bit.
 
+A third form of the same step builds S itself: the explicit dense
+reduced camera system of solver/explicit.py (``explicit_s=True``, and the
+auto gate ``explicit_s=None`` at n_img <= explicit_s_max_images with
+obs_order="tie" on the unfused path), after which each CG matvec is one
+dense ``S @ v`` and the preconditioner is read off S's diagonal blocks.
+
 The kernels run on the card; CPU tensors take their plain PyTorch
 versions.  Free-network datum (Inner_Constraints): CG runs projected
-onto null(G^T).
+onto null(G^T).  ``compute_covariance=True`` (the default) adds every
+unknown's std from solver/covariance.py: the exact block covariance up to
+1000 images, the Hutchinson estimate past them.
 
-The slice covers ``solve_schur(problem, options, compute_covariance=False)``
-driven by the host Gauss-Newton loop with the deferred Levenberg-Marquardt
-control, for every configuration that would run matrix-free in the JAX
-package.  The explicit dense S (``explicit_s=True``, and the auto gate
-``explicit_s=None`` at n_img <= explicit_s_max_images on the unfused
-path), the device loop and covariance raise NotImplementedError naming
-the ROADMAP.md item that ports them; nothing falls back.
+The host Gauss-Newton loop drives every path with the deferred
+Levenberg-Marquardt control; the device loop (``device_loop=True``)
+raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -76,6 +80,11 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.constraints import (
     validate_inner_constraints,
 )
 from fish_eye_bundle_adjustment_tpu_torch.solver.dense import DenseResult, resolve_device
+from fish_eye_bundle_adjustment_tpu_torch.solver.explicit import (
+    PairPlan,
+    build_dense_S,
+    dense_precond,
+)
 from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as ckpt_mod
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
@@ -85,10 +94,9 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     check_divergence,
 )
 
-# What each configuration outside the slice waits for (ROADMAP.md Queue 1).
+# What each configuration outside the port so far waits for (ROADMAP.md
+# Queue 1).
 _NOT_PORTED = {
-    "explicit": "solver/explicit.py, the explicit dense-S PairPlan (ROADMAP.md Queue 1, item 5)",
-    "covariance": "solver/covariance.py (ROADMAP.md Queue 1, item 6)",
     "device_loop": "solver/device_loop.py (ROADMAP.md Queue 1, item 7)",
 }
 
@@ -188,7 +196,8 @@ class ObsData:
     plan: Optional[DualAxisPlan] = None
     # banded-stream structure for the fused kernels; `tie` then holds RANKs
     band: Optional[BandArrays] = None
-    # direct tie and image sums (unfused float32 at obs_order "img"/None)
+    # direct tie and image sums (unfused float32 at obs_order "img"/None;
+    # a banded stream builds them on first use, see _band_sums)
     by_tie: Optional[DirectPlan] = None
     by_img: Optional[DirectPlan] = None
     # per-camera sums of the unfused stream when n_cam > 1: direct in
@@ -306,14 +315,34 @@ class ObsData:
         row, of the control observations and the padding, which callers
         drop."""
         if self.plan is None:
-            return self.by_tie.sum(vals)
+            return self._band_sums().by_tie.sum(vals)
         return self.plan.primary_sum(vals)
 
     def img_sum(self, vals):
         """(n, D) -> (n_img, D) per-image sums."""
         if self.plan is None:
-            return self.by_img.sum(vals)
+            return self._band_sums().by_img.sum(vals)
         return self.plan.secondary_sum(vals)
+
+    def _band_sums(self) -> "ObsData":
+        """Direct tie and image plans over a banded stream, built on first
+        use: the fused solve never reads them, but the unfused factor
+        pieces (the covariance estimator's C^T b, P^T b and Schur-Jacobi
+        blocks) do.  Each segment's rows add in the band stream's own row
+        order, as a serial scatter-add over that stream.  Rows of the dummy
+        tie slot (control observations) and of the padding get ids past
+        the last segment: no caller reads their sums, and one long group
+        of them would set the span kernel's time."""
+        if self.by_tie is None and self.band is not None:
+            band = self.band
+            n_pad = self.tie.shape[0]
+            live = np.arange(n_pad) < len(self.order)
+            rank = np.arange(n_pad)
+            dev = self.tie.device
+            self.by_tie = DirectPlan.build(self.tie.cpu().numpy(), band.n_tie, rank, dev)
+            self.by_img = DirectPlan.build(
+                np.where(live, self.img.cpu().numpy(), band.n_img), band.n_img, rank, dev)
+        return self
 
     def cam_sum(self, vals):
         """(n, D) -> (n_cam, D) per-camera sums."""
@@ -326,9 +355,8 @@ class ObsData:
 class SchurOptions:
     """The JAX package's SchurOptions, same fields and defaults; see
     fish_eye_bundle_adjustment_tpu/solver/schur.py for the reasons behind
-    each.  The options of the paths not ported yet (explicit S, the device
-    loop) are kept so configurations carry over, and selecting one raises
-    NotImplementedError in solve_schur."""
+    each.  The device loop's options are kept so configurations carry
+    over; device_loop=True raises NotImplementedError in solve_schur."""
 
     cg_tol: float = 1e-10  # relative residual tolerance for the inner CG
     cg_maxiter: int = 500
@@ -340,7 +368,8 @@ class SchurOptions:
     # float32 path, the order and the form of the tie and image sums (see
     # ObsData.from_problem)
     obs_order: Optional[str] = "tie"
-    # explicit dense reduced camera system (solver/explicit.py, not ported)
+    # explicit dense reduced camera system (solver/explicit.py): True
+    # forces it, None picks it at n_img <= explicit_s_max_images
     explicit_s: Optional[bool] = None
     explicit_s_max_images: int = 600
     # Inexact-Newton forcing (Eisenstat-Walker style): the inner CG runs to
@@ -1023,17 +1052,19 @@ def make_projection_builder(layout, nc, use_ic: bool):
 def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
                   pairs=None):
     """One (damped) Gauss-Newton step as a function of (x, obs, cg_tol,
-    lam) on the matrix-free path (fused or unfused, as the
-    linearization picks).  `cg_tol` and `lam` are Python
-    floats or 0-d tensors (lam = 0 is a pure GN step).
+    lam).  `cg_tol` and `lam` are Python floats or 0-d tensors (lam = 0
+    is a pure GN step).
+
+    With `pairs` (a solver.explicit.PairPlan), the reduced camera system
+    is built densely once per step and CG runs with GEMV matvecs and a
+    preconditioner read off S's diagonal blocks; otherwise the
+    matrix-free matvec (fused or unfused, as the linearization picks).
 
     Returns (x_trial, L1(delta), v_local, stats, cg_iters) with cg_iters a
     0-d device tensor and stats =
     [vPv_model, sum_vx2, sum_vy2, cost_old]: vPv_model is the LINEARIZED
     weighted SSR at the trial point (sigma0^2 numerator, and the LM
     predicted cost), cost_old the TRUE weighted SSR at x."""
-    if pairs is not None:
-        raise _not_ported("explicit", "a PairPlan was given")
     opts = kernel.opts
     project_builder = make_projection_builder(layout, kernel.nc, use_ic)
     adaptive = opts.adaptive_damping
@@ -1050,13 +1081,22 @@ def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
         rym = torch.where(wy > 0, fac.ry, zero)
         cost_old = _stable_sum(wx * rxm**2 + wy * rym**2)
         project = project_builder(q)
-        # one fused pass produces the rhs and the preconditioner blocks
-        rhs, precond, dvec = fac.rhs_and_precond(lam=lam_t)
-        if lam_t is not None:
-            base_mv = fac.schur_matvec
-            matvec = lambda v: base_mv(v) + (lam_t * dvec) * v
+        if pairs is not None:
+            S = build_dense_S(fac, pairs)
+            if lam_t is not None:
+                # damp with raw diag(Hcc) -- the dense-parity LM geometry
+                S.diagonal().add_(lam_t * fac.dcc)
+            matvec = lambda v: S @ v
+            precond = dense_precond(S, kernel)
+            rhs = fac.reduced_rhs()
         else:
-            matvec = fac.schur_matvec
+            # one fused pass produces the rhs and the preconditioner blocks
+            rhs, precond, dvec = fac.rhs_and_precond(lam=lam_t)
+            if lam_t is not None:
+                base_mv = fac.schur_matvec
+                matvec = lambda v: base_mv(v) + (lam_t * dvec) * v
+            else:
+                matvec = fac.schur_matvec
         dc, cg_iters, _ = _pcg(
             matvec, rhs, precond, project, scalar(cg_tol), opts.cg_maxiter
         )
@@ -1316,16 +1356,29 @@ def make_band_plan(problem, layout, opts: SchurOptions):
     )
 
 
-def uses_explicit_s(problem, layout, opts: SchurOptions) -> bool:
-    """Whether the JAX package would build the explicit dense S for an
-    unfused solve (its make_pair_plan gate): explicit_s=True, or the auto
-    gate explicit_s=None at n_img <= explicit_s_max_images with
-    obs_order="tie" -- with poses and tie points to pair."""
+def make_pair_plan(problem, layout, opts: SchurOptions, device="cpu"):
+    """The static observation-pair plan of the explicit dense-S path when
+    it applies, as the JAX package's make_pair_plan gates it: explicit_s
+    True, or None at n_img <= explicit_s_max_images with obs_order="tie";
+    with poses and tie points to pair.  None otherwise.  The plan indexes
+    the tie-sorted stream (ObsData.sort_order_by_tie, the unfused path's
+    order at obs_order="tie")."""
+    tie_order = opts.obs_order == "tie"
     explicit = opts.explicit_s
     if explicit is None:
-        explicit = (problem.n_img <= opts.explicit_s_max_images
-                    and opts.obs_order == "tie")
-    return bool(explicit) and layout.n_eop > 0 and layout.n_tie > 0
+        explicit = problem.n_img <= opts.explicit_s_max_images and tie_order
+    if not explicit or layout.n_eop == 0 or layout.n_tie == 0:
+        return None
+    if not tie_order:
+        raise ValueError("explicit_s requires the tie-sorted obs order")
+    order = ObsData.sort_order_by_tie(problem, layout)
+    tie = problem.target_tie_slot[problem.obs_pt]
+    tie = np.where((tie >= 0) & (tie < layout.n_tie), tie, layout.n_tie).astype(np.int64)
+    return PairPlan.build(
+        tie[order], problem.obs_img[order], layout.n_tie, layout.n_img, device,
+        cam=problem.obs_cam[order] if layout.n_iop else None, n_cam=problem.n_cam,
+        dtype=opts.dtype,
+    )
 
 
 def solve_schur(
@@ -1339,23 +1392,21 @@ def solve_schur(
     compute_covariance: bool = True,
     device=None,
 ) -> DenseResult:
-    """Outer Gauss-Newton loop with the matrix-free Schur/PCG inner solve
-    on one device (`device`, default "cuda").
+    """Outer Gauss-Newton loop with the Schur/PCG inner solve on one
+    device (`device`, default "cuda").
 
     Matches the reference's convergence conventions (L1 of the de-scaled
     correction vs Threshold_Value, Iteration_Cap).  Dispatches in the JAX
-    package's order: a band plan means the fused path; otherwise the
-    unfused path, unless the JAX package would build the explicit dense S
-    there.  Parameter stds (compute_covariance=True), the explicit dense S
-    (explicit_s=True, or its auto gate at n_img <= explicit_s_max_images:
-    pass explicit_s=False for the matrix-free solve) and the device loop
-    raise NotImplementedError.
+    package's order: explicit_s=True forces the explicit dense S; else a
+    band plan means the fused path; else the unfused path, with the
+    explicit dense S where its auto gate is on (n_img <=
+    explicit_s_max_images at obs_order="tie").  Parameter stds
+    (compute_covariance=True) come from solver/covariance.py on the same
+    device: the exact block covariance up to 1000 images, the Hutchinson
+    estimate past them.  The device loop (device_loop=True) raises
+    NotImplementedError.
     """
     opts = options or SchurOptions()
-    if compute_covariance:
-        raise _not_ported("covariance", "compute_covariance=True")
-    if opts.explicit_s is True:
-        raise _not_ported("explicit", "explicit_s=True")
     if opts.device_loop:
         raise _not_ported("device_loop", "device_loop=True")
     dev = resolve_device(device, "solve_schur")
@@ -1366,20 +1417,16 @@ def solve_schur(
         validate_inner_constraints(layout)
 
     kernel = SchurKernel(layout, opts)
-    band_plan = make_band_plan(problem, layout, opts)
-    if band_plan is None and uses_explicit_s(problem, layout, opts):
-        raise _not_ported(
-            "explicit",
-            f"explicit_s=None picks the dense reduced camera system at "
-            f"{problem.n_img} <= explicit_s_max_images="
-            f"{opts.explicit_s_max_images} images (pass explicit_s=False "
-            "for the matrix-free solve)",
-        )
+    # explicit_s=True is a force knob: honor it over the fused banded path
+    band_plan = (None if opts.explicit_s is True
+                 else make_band_plan(problem, layout, opts))
+    pairs = (None if band_plan is not None
+             else make_pair_plan(problem, layout, opts, dev))
     obs = ObsData.from_problem(
         problem, layout, band_plan, dtype=opts.dtype, device=dev,
         obs_order=opts.obs_order,
     )
-    raw_step = schur_step_fn(kernel, layout, use_ic)
+    raw_step = schur_step_fn(kernel, layout, use_ic, pairs=pairs)
     cg_iterations = []  # 0-d device counts, read once at the end
 
     def step(x, o, tol, lam):
@@ -1402,4 +1449,14 @@ def solve_schur(
     )
     result.cg_iterations = (torch.stack(cg_iterations).tolist()
                             if cg_iterations else [])
+    if compute_covariance:
+        from fish_eye_bundle_adjustment_tpu_torch.solver.covariance import compute_stds
+
+        std, Cc_q, method = compute_stds(
+            problem, layout, result.x, result.sigma02, device=dev
+        )
+        if std is not None:
+            result.std = std
+            result.Cc_q = Cc_q
+            result.std_method = method
     return result

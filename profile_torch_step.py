@@ -1,7 +1,8 @@
 """Where one Gauss-Newton step of the PyTorch port spends its time on a
 CUDA card, on the 1k-image self-calibrating fisheye block of bench.py.
 
-    python3 profile_torch_step.py          # from the repository root
+    python3 profile_torch_step.py             # from the repository root
+    python3 profile_torch_step.py --explicit  # the explicit dense S instead
 
 Imports nothing of JAX.  Three parts, each printing its own lines:
 
@@ -21,8 +22,22 @@ Each step starts from the same point with CG run to CG_ITERS iterations
 (cg_tol 0, as chip_smoke.py's cg_maxiter), so every step does the same
 work.  The last line is one JSON object with every number; the full
 profiler table goes to chiprun_out/profile_torch_step.txt.
+
+With --explicit, the float64 step's explicit dense S (solver/explicit.
+build_dense_S) on the largest block its auto gate takes, 600 images /
+60,000 points (chip_smoke.py phase 14's block), at the initial point:
+
+  pieces    device ms (CUDA events) of build_dense_S and of its pieces:
+            the coupling factors Mt, one pair-row gather Mt[pa], the pair
+            products as explicit.abt forms them (three broadcast products)
+            and as one batched GEMM (torch.einsum), the K4 segment sum of
+            the (P, 36) products, the IOP borders
+  profile   torch.profiler over one build_dense_S: the device's busy time
+            and the top kernels by device time (the full table to
+            chiprun_out/profile_torch_explicit.txt)
 """
 
+import argparse
 import json
 import os
 import statistics
@@ -33,8 +48,10 @@ import numpy as np
 import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.models import projection
-from fish_eye_bundle_adjustment_tpu_torch.solver import schur
+from fish_eye_bundle_adjustment_tpu_torch.ops import segment
+from fish_eye_bundle_adjustment_tpu_torch.solver import explicit, schur
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import cuda_ms
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
 SELFCAL = dict(
@@ -68,7 +85,69 @@ def tangent_dtypes(kern, obs, q, rows=4096):
     return [str(j.dtype) for j in J]
 
 
+def _device_kernels(prof):
+    """The device's own entries of a profile: an aten:: operator also
+    carries the device time of the kernels it launched, which would count
+    it twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_explicit(dev, card):
+    """build_dense_S and its pieces on phase 14's block (see --explicit)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = make_block(n_img=600, n_pts=60_000, model="fisheye", seed=2, control_frac=0.01,
+                   settings_overrides={"inner_constraints": False, **SELFCAL}).problem
+    layout = ParamLayout(p)
+    opts = schur.SchurOptions(cg_maxiter=CG_ITERS)
+    pairs = schur.make_pair_plan(p, layout, opts, dev)
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, dtype=np.float64, device=dev)
+    x = torch.as_tensor(layout.initial(), device=dev)
+    fac = kern.linearize(x * layout.scale_like(x), obs)
+    Mt, _ = explicit.coupling_factors(fac)
+    A, B = Mt[pairs.pa], Mt[pairs.pb]
+    prod = explicit.abt(A, B).reshape(A.shape[0], -1)
+    print(f"[block] n_obs={p.n_obs} n_pairs={pairs.n_pairs} (padded {A.shape[0]}) nc={kern.nc}")
+    border = torch.zeros((kern.n_img * kern.ne,) * 2, dtype=torch.float64, device=dev)
+    pieces = {
+        "build_dense_S": lambda: explicit.build_dense_S(fac, pairs),
+        "coupling_factors": lambda: explicit.coupling_factors(fac),
+        "pair-row gather Mt[pa]": lambda: Mt[pairs.pa],
+        "pair products (abt)": lambda: explicit.abt(A, B),
+        "pair products (einsum)": lambda: torch.einsum("nek,nfk->nef", A, B),
+        "K4 segment sum of the products": lambda: segment.sorted_segment_sum(prod, pairs.keys),
+        "IOP borders": lambda: explicit._append_iop_borders(fac, Mt, border, pairs),
+    }
+    result = dict(card=card, torch=torch.__version__, n_pairs=pairs.n_pairs)
+    for name, fn in pieces.items():
+        result[name] = cuda_ms(fn, reps=5, warmup=1)
+        print(f"[pieces] {name}: {result[name]:.3f} ms")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        explicit.build_dense_S(fac, pairs)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[profile] one build_dense_S: device busy {busy:.3f} ms over "
+          f"{sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[profile] {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x {e.key[:90]}")
+    result["profile busy ms"] = busy
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "profile_torch_explicit.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(json.dumps(result))
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--explicit", action="store_true",
+                        help="profile the explicit dense S on the 600-image block")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
@@ -76,6 +155,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
+    if args.explicit:
+        profile_explicit(dev, card)
+        return
 
     blk = make_block(
         n_img=1000, n_pts=100_000, model="fisheye", seed=2, control_frac=0.01,
@@ -125,7 +207,6 @@ def main():
     result["cg_iterations_seen"] = sorted(set(cg_counts))
 
     one_step()
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     schur.reset_cg_counts()
@@ -133,9 +214,7 @@ def main():
         wall = _sync_wall_ms(one_step)
     cgc = dict(schur.cg_counts)
     events = prof.key_averages()
-    # the device's own entries only: an aten:: operator also carries the
-    # device time of the kernels it launched, which would count it twice
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     dev_self = lambda e: e.self_device_time_total
     busy_ms = sum(dev_self(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_self, reverse=True)[:12]

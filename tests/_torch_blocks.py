@@ -5,11 +5,27 @@ generator and handed to both packages as the same arrays."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 SELFCAL = dict(
     estimate_c=True, estimate_xp=True, estimate_yp=True,
     estimate_radial=True, estimate_decent=True,
 )
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch's CPU ops on one thread for the module that imports this
+    (restored after it).  The parity tests run six pytest workers on a few
+    cores; with torch's default pool (a thread a core in each worker) the
+    pools spin against each other in every small op: one small solve test
+    took 220 s beside five copies of itself, and 18 s with one thread
+    each.  The tolerances do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # name -> make_block keyword arguments (the sizes of tests/test_fusedmv.py)
 BLOCKS = {
@@ -39,6 +55,18 @@ def jax_block(name, **settings):
     kw = dict(BLOCKS[name])
     kw["settings_overrides"] = {**kw["settings_overrides"], **settings}
     return make_block(model="fisheye", **kw).problem
+
+
+def lm_block(scale=420.0, iteration_cap=4):
+    """selfcal16 with every tie point's initial coordinates moved by a
+    seeded N(0, scale m).  At the defaults the first GN step raises the
+    weighted SSR and is rejected, and the LM controller damps the next
+    ones (capped at 4 iterations; the solve does not converge in them)."""
+    p = jax_block("selfcal16", iteration_cap=iteration_cap)
+    c = p.cnt_xyz.copy()
+    rng = np.random.default_rng(0)
+    c[p.tie_target_idx] += rng.normal(scale=scale, size=(p.n_tie, 3))
+    return dataclasses.replace(p, cnt_xyz=c)
 
 
 def to_port(problem):

@@ -12,7 +12,6 @@ L1 norm) are as small as the rounding of the two LU solves, whose
 summation orders differ, so their relative agreement is far looser than
 1e-9 while their absolute difference stays well inside 1e-10."""
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -29,19 +28,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver import dense as tdense
 from fish_eye_bundle_adjustment_tpu_torch.solver.linearize import Linearizer as TLinearizer
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
-from _torch_blocks import jax_block, to_port
-
-
-def _lm_block():
-    """selfcal16 with every tie point's initial coordinates moved by a
-    seeded N(0, 420 m): the first GN step raises the weighted SSR and is
-    rejected, and the LM controller damps the next ones (capped at 4
-    iterations; the solve does not converge in them)."""
-    p = jax_block("selfcal16", iteration_cap=4)
-    c = p.cnt_xyz.copy()
-    rng = np.random.default_rng(0)
-    c[p.tie_target_idx] += rng.normal(scale=420.0, size=(p.n_tie, 3))
-    return dataclasses.replace(p, cnt_xyz=c)
+from _torch_blocks import jax_block, lm_block, to_port
 
 
 # mode -> the block that exercises it
@@ -49,7 +36,7 @@ MODES = {
     "eop": lambda: jax_block("eop12"),  # EOPs and tie points, IOPs fixed
     "free_network": lambda: jax_block("ic12"),  # Inner_Constraints: bordered KKT
     "selfcal": lambda: jax_block("selfcal16"),  # c, xp, yp, k1..k3, p1, p2 too
-    "lm_first_step_rejected": _lm_block,
+    "lm_first_step_rejected": lm_block,
 }
 
 

@@ -33,7 +33,9 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import fusedmv as tfused
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur as tschur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
-from _torch_blocks import BLOCKS, STRESS, jax_block, stress_plan, to_port
+from _torch_blocks import (  # noqa: F401 (one_torch_thread: autouse)
+    BLOCKS, STRESS, jax_block, one_torch_thread, stress_plan, to_port,
+)
 
 RTOL = 1e-5
 

@@ -25,7 +25,7 @@ from fish_eye_bundle_adjustment_tpu_torch.io.problem import BAProblem
 from fish_eye_bundle_adjustment_tpu_torch.ops import bandplan as tbandplan
 from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as tckpt
 
-from _torch_blocks import BLOCKS, jax_block, to_port
+from _torch_blocks import BLOCKS, jax_block, one_torch_thread, to_port  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from fish_eye_bundle_adjustment_tpu.models import projection as jproj
 from fish_eye_bundle_adjustment_tpu_torch.models import projection as tproj
 
-from _torch_blocks import jax_block
+from _torch_blocks import jax_block, one_torch_thread  # noqa: F401 (autouse)
 
 MODELS = list(jproj.MODEL_IDS)
 

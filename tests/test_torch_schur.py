@@ -26,7 +26,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import fusedmv as tfused
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur as tschur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
-from _torch_blocks import jax_block, to_port
+from _torch_blocks import jax_block, one_torch_thread, to_port  # noqa: F401 (autouse)
 
 X_TOL = dict(rtol=3e-5, atol=3e-4)
 # A single-pass "bf16" operand rounds to 8 bits, and one GN step's CG (5
@@ -152,24 +152,57 @@ NINE_IOPS = dict(estimate_c=True, estimate_xp=True, estimate_yp=True,
 
 
 @pytest.mark.parametrize("opts, kw, settings, item", [
-    (dict(dtype=np.float64), {}, {}, "item 5"),
-    (dict(dtype=np.float32, fused=False), {}, {}, "item 5"),
     (dict(dtype=np.float32, device_loop=True), {}, {}, "item 7"),
-    (dict(dtype=np.float32, explicit_s=True), {}, {}, "item 5"),
-    (dict(dtype=np.float32), dict(compute_covariance=True), {}, "item 6"),
-    (dict(dtype=np.float32), {}, NINE_IOPS, "item 5"),
-], ids=["f64", "unfused", "device_loop", "explicit_s", "covariance", "nine_iops"])
+], ids=["device_loop"])
 def test_outside_the_slice_raises(opts, kw, settings, item):
     """Configurations the port does not cover yet raise, naming their
-    ROADMAP Queue 1 item; nothing falls back to another path.  The f64,
-    unfused and nine-IOP routes (nine IOP unknowns overflow the fused
-    operator's 8 IOP rows) lead into the unfused path, where explicit_s=None
-    at 12 <= explicit_s_max_images images picks the explicit dense S, as in
-    the JAX package: item 5."""
+    ROADMAP Queue 1 item; nothing falls back to another path."""
     p = to_port(jax_block("eop12", **settings))
     kw = {"compute_covariance": False, "device": "cpu", **kw}
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         tschur.solve_schur(p, tschur.SchurOptions(**opts), **kw)
+
+
+# The configurations that raised before the explicit dense S and the
+# covariance were ported, each now solved on both sides: (the port's
+# options, the JAX package's, solve_schur keywords, settings, x tolerance).
+# The float64 default and every float32 route into the unfused path take
+# the explicit dense S by the auto gate at 12 <= 600 images (nine IOP
+# unknowns overflow the fused operator's 8 IOP rows); "covariance" is the
+# fused float32 solve (the JAX fused operator in interpret mode) with its
+# exact float64 stds.
+X_TOL_F64 = dict(rtol=1e-9, atol=1e-7)
+FORMERLY_RAISING = {
+    "f64": (dict(dtype=np.float64), {}, {}, {}, X_TOL_F64),
+    "unfused": (dict(dtype=np.float32, fused=False), {}, {}, {}, X_TOL),
+    "explicit_s": (dict(dtype=np.float32, explicit_s=True), {}, {}, {}, X_TOL),
+    "covariance": (dict(dtype=np.float32), dict(fused=True, device_loop=False),
+                   dict(compute_covariance=True), {}, X_TOL),
+    "nine_iops": (dict(dtype=np.float32), {}, {}, NINE_IOPS, X_TOL),
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_RAISING))
+def test_formerly_raising_configurations_match_jax(case):
+    """x within the tolerance of its precision, the same iterations and
+    stop, sigma0^2 within 1e-9 (float64) or 1e-4 (float32) relative; with
+    compute_covariance=True the stds of both float32 solutions, each the
+    exact float64 covariance at its own x, within 1e-4 relative."""
+    opts, jopts, kw, settings, tol = FORMERLY_RAISING[case]
+    jp = jax_block("eop12", **settings)
+    kw = {"compute_covariance": False, **kw}
+    want = jschur.solve_schur(jp, jschur.SchurOptions(**opts, **jopts), **kw)
+    got = tschur.solve_schur(to_port(jp), tschur.SchurOptions(**opts), device="cpu", **kw)
+    assert (got.iterations, got.converged, got.stopped_on) == (
+        want.iterations, want.converged, want.stopped_on)
+    np.testing.assert_allclose(got.x, want.x, **tol)
+    s_tol = 1e-9 if tol is X_TOL_F64 else 1e-4
+    assert abs(got.sigma02 - want.sigma02) <= s_tol * want.sigma02
+    if kw["compute_covariance"]:
+        assert got.std_method == want.std_method == "exact"
+        np.testing.assert_allclose(got.std, want.std, rtol=1e-4)
+    else:
+        assert got.std is None and got.std_method is None
 
 
 def test_sharded_segment_plans_raise():

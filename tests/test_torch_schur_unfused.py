@@ -33,7 +33,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import streamseg as tstreamseg
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur as tschur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout as TLayout
 
-from _torch_blocks import jax_block, to_port
+from _torch_blocks import jax_block, one_torch_thread, to_port  # noqa: F401 (autouse)
 
 F64_X_TOL = dict(rtol=1e-9, atol=1e-7)
 F32_X_TOL = dict(rtol=3e-5, atol=3e-4)
