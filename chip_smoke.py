@@ -10,8 +10,9 @@ at the block's shapes; then the paths of the JAX package's remaining
 Pallas kernels, its bench scripts, through their twins
 (bench_torch_streamseg.py, bench_torch_pallas_gather.py,
 bench_torch_pallas_onehot.py) at those scripts' sizes; then the dense
-CLI, the default solve_schur (the explicit dense S and the stds) and the
-stds at the bench block.  Imports nothing of JAX.  Phases:
+CLI, the default solve_schur (the explicit dense S and the stds), the
+stds at the bench block, and the distributed solvers of parallel/ on an
+NCCL group.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
@@ -131,6 +132,26 @@ stds at the bench block.  Imports nothing of JAX.  Phases:
                    matvec, no K4 and no plain version; clipped share < 2%,
                    log-correlation with the exact stds > 0.95; the span
                    segment sum at the estimator's image-sum shape
+ 16. distributed   an NCCL group of the visible cards (this process, at one
+                   card) on the bench block: solve_schur_distributed
+                   (float64, 3 iterations) and
+                   solve_schur_sharded_state(point_mode="sharded") held to
+                   phase 9's solve (the same iterations, x within
+                   rtol=1e-9, atol=1e-7), solve_schur_fused_sharded
+                   (float32, 5 iterations) to phase 6's (rtol=1e-3,
+                   atol=2e-3); the host time of one all-reduce of a CG
+                   matvec's payload (fused and distributed); each solve's step
+                   walls, peak memory, launches (K4 = 6 * steps + 2 *
+                   matvecs; K1 = steps, K2 = 2 * steps + matvecs; nothing
+                   else, no plain version) and collective calls and bytes
+                   by operation; K1 and K2 on each window of the band plan
+                   split over 4 (what 4 cards would run) against their
+                   plain versions, and summed against the unsharded
+                   kernels, with times and bounds; compute_stds(mesh=...)
+                   past the gate on a 300-image block (the mesh estimate:
+                   float32 unfused probe solves, K4 only) against its exact
+                   stds by phase 15's measures; K4 at a 4-card slice
+                   (float64) and the stds block's stream (float32)
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -146,8 +167,9 @@ sheet) -- counted from the kernels' code per observation row (K1, K2,
 K4) or from the function's own arithmetic (phases 10 and 11).  The
 table has one entry per kernel of phases 4-9, one per probe of phases
 10-11, one for the span segment sum on the solver path (phase 12), K4 on
-the explicit S's pair products and tie IOP sums (phase 14), and K1, K2
-and the span segment sum on the estimator's path (phase 15); `replaces`
+the explicit S's pair products and tie IOP sums (phase 14), K1, K2
+and the span segment sum on the estimator's path (phase 15), and K1, K2
+and K4 on the distributed paths (phase 16); `replaces`
 lists the pallas_call sites each stands for.  Phase 13 adds no kernel:
 the dense path's products, solve and inverse are torch.matmul and
 torch.linalg, as the JAX package leaves them to XLA; so are the explicit
@@ -619,7 +641,7 @@ def phase_unfused_main_path(p, layout, dev):
     print(f"[9 unfused] weighted SSR {c0:.9g} -> {c1:.9g}")
     if not (np.isfinite(c1) and c1 < c0):
         raise RuntimeError("[9 unfused] FAIL: the weighted SSR did not fall")
-    return {"chunk_prefix": k4}
+    return {"chunk_prefix": k4}, res
 
 
 def _reset_counts():
@@ -1185,6 +1207,319 @@ def phase_stds(p, layout, main_res, dev, card):
     return {k: v for k, v in launches.items() if v}, (pr, r)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the distributed solvers of parallel/ on an NCCL group
+# ---------------------------------------------------------------------------
+
+STDS_BLOCK = dict(n_img=300, n_pts=30_000, seed=2, control_frac=0.01)
+FUSED_SHARD_TOL = dict(rtol=1e-3, atol=2e-3)  # tests/test_fusedshard.py
+N_SHARDS = 4  # the per-shard kernels: a 4-card run's windows, on one card
+
+
+def _coll(counts):
+    return "; ".join(f"{op} {c['calls']} calls {c['bytes'] / 1e6:.2f} MB"
+                     for op, c in counts.items())
+
+
+def stds_block(dev):
+    """The reduced stds block, solved first (5 fused float32 iterations)
+    for its x and sigma0^2: (problem, result)."""
+    stds_p = make_block(model="fisheye", settings_overrides={
+        "inner_constraints": False, **SELFCAL}, **STDS_BLOCK).problem
+    stds_p = dataclasses.replace(
+        stds_p, settings=dataclasses.replace(stds_p.settings, iteration_cap=5))
+    pre = schur.solve_schur(stds_p, schur.SchurOptions(dtype=np.float32, cg_maxiter=40),
+                            compute_covariance=False, device=dev)
+    return stds_p, pre
+
+
+def _distributed_rank(mesh, p, stds_p, stds_x, stds_sigma02):
+    """Phase 16's solves on one rank (every rank of the group alike): the
+    three distributed solvers on the bench block, then the mesh estimate of
+    the stds block's stds.  Returns rank 0's numbers; raises on a count
+    that is off."""
+    import torch.distributed as dist
+
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import (
+        dist_schur, fusedshard, sharded_state,
+    )
+
+    tag = "16 distributed"
+    say = print if mesh.index == 0 else (lambda *a, **k: None)
+    out = {"backend": dist.get_backend(), "size": mesh.size}
+    runs = (
+        ("distributed", dist_schur.solve_schur_distributed, {},
+         schur.SchurOptions(cg_maxiter=40), 3),
+        ("sharded", sharded_state.solve_schur_sharded_state, dict(point_mode="sharded"),
+         schur.SchurOptions(cg_maxiter=40), 3),
+        ("fused_sharded", fusedshard.solve_schur_fused_sharded, {},
+         schur.SchurOptions(dtype=np.float32, cg_maxiter=40), 5),
+    )
+    for name, solve, kw, opts, cap in runs:
+        problem = dataclasses.replace(
+            p, settings=dataclasses.replace(p.settings, iteration_cap=cap))
+        walls = []
+
+        def progress(rec, name=name, walls=walls):
+            walls.append(rec.elapsed_s * 1e3)
+            say(f"[{tag}] {name} iter {rec.iteration}: L1(delta)={rec.delta_l1:.9g} "
+                f"lambda={rec.damping or 0.0:.3g} wall={rec.elapsed_s * 1e3:.1f} ms"
+                + ("" if rec.accepted else " REJECTED"))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        schur.reset_cg_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        res = solve(problem, mesh, opts, progress_fn=progress, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = _read_counts()
+        cgc = dict(schur.cg_counts)
+        cg = res.cg_iterations
+        steps, mv = len(cg), 8 * (cgc["host_reads"] - cgc["calls"])
+        if name == "fused_sharded":
+            want = {"fused_hpp_pass": steps, "fused_schur_apply": 2 * steps + mv}
+        else:
+            want = {"chunk_prefix": 6 * steps + 2 * mv}
+        ran = {k: v for k, v in launches.items() if v}
+        out[name] = dict(
+            x=res.x, iterations=res.iterations, sigma02=res.sigma02, cg=cg, wall=wall,
+            walls=walls, peak=torch.cuda.max_memory_allocated() / 2**30, launches=ran,
+            plain=plain, counts={k: dict(v) for k, v in mesh.counts.items()}, cgc=cgc,
+            finite=bool(np.isfinite(res.x).all() and np.isfinite(res.v).all()))
+        say(f"[{tag}] {name}: {res.iterations} iterations ({res.stopped_on}), steps={steps} "
+            f"cg per step={cg} sigma0^2={res.sigma02:.9f} wall={wall:.2f} s peak mem="
+            f"{out[name]['peak']:.2f} GiB; launches {ran} (expected {want}), plain versions "
+            f"called {plain}; collectives of rank {mesh.index}: "
+            f"{_coll(out[name]['counts'])}")
+        if ran != want or plain or cgc["matvecs"] != mv:
+            raise RuntimeError(f"[{tag}] FAIL: {name}: launches {ran}, expected {want}, "
+                               f"plain {plain}, CG {cgc}")
+
+    # what one all-reduce costs a CG matvec: the fused operator's camera
+    # outputs (float32) and the distributed matvec's tie sum (float64)
+    kern = schur.SchurKernel(ParamLayout(p), schur.SchurOptions())
+    payloads = {
+        f"the fused matvec's camera outputs ({kern.ne * kern.n_img + kern.ni * 128} "
+        f"float32)": torch.ones(kern.ne * kern.n_img + kern.ni * 128, device=mesh.device),
+        f"the distributed matvec's tie sum ({3 * kern.n_tie} float64)": torch.ones(
+            3 * kern.n_tie, dtype=torch.float64, device=mesh.device),
+    }
+    out["psum_us"] = {}
+    for what, buf in payloads.items():
+        for _ in range(10):
+            mesh.psum(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            mesh.psum(buf)
+        torch.cuda.synchronize()
+        out["psum_us"][what] = (time.perf_counter() - t0) / 200 * 1e6
+
+    # the SPMD probe stds (float32, unfused, the rank's slice: K4 under
+    # every sum), past the gate on the stds block
+    layout = ParamLayout(stds_p)
+    info = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    schur.reset_cg_counts()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    est, Cc, method = covariance.compute_stds(
+        stds_p, layout, stds_x, stds_sigma02, max_images=stds_p.n_img - 1, mesh=mesh,
+        device=mesh.device, info=info)
+    torch.cuda.synchronize()
+    launches, plain = _read_counts()
+    ran = {k: v for k, v in launches.items() if v}
+    out["stds"] = dict(est=est, method=method, wall=time.perf_counter() - t0, launches=ran,
+                       plain=plain, cgc=dict(schur.cg_counts), its=info["cg_iterations"],
+                       counts={k: dict(v) for k, v in mesh.counts.items()})
+    if method != "hutchinson" or Cc is not None or set(ran) != {"chunk_prefix"} or plain:
+        raise RuntimeError(f"[{tag}] FAIL: the mesh estimate: {method}, launches {ran}, "
+                           f"plain {plain}")
+    return out
+
+
+def phase_shard_kernels(p, layout, plan, dev, card):
+    """K1 and K2 on each window of the bench block's band plan split over
+    N_SHARDS, on one card: each window folded from its own rows
+    (fusedshard.window_streams) with the unsharded Hpp^-1 of its ranks, at
+    x0.  Each held to its plain version (1e-5 relative norm, bitwise
+    repeatable) and timed with its bound; the camera-side outputs summed
+    over the windows held to the unsharded kernels' (1e-5)."""
+    from types import SimpleNamespace
+
+    from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import split_band_plan
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import fusedshard
+
+    tag = "16 shard kernels"
+    opts = schur.SchurOptions(dtype=np.float32)
+    kern = schur.SchurKernel(layout, opts)
+    ne, ni = kern.ne, kern.ni
+    obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)
+    x0 = torch.as_tensor(layout.initial().astype(np.float32), device=dev)
+    q = x0 * layout.scale_like(x0)
+    fac = kern.linearize(q, obs, lam=torch.zeros((), device=dev))
+    rng = np.random.default_rng(0)
+    rnd = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+    vpose, vi = rnd(8, plan.n_img_pad), rnd(128)
+    names = ("fused_hpp_pass", "fused_schur_apply/matvec_bf16",
+             "fused_schur_apply/rhs_precond", "fused_schur_apply/backsub")
+    whole_cases = bench_torch_fusedmv.kernel_cases(
+        fusedmv, obs.band, fac, ne, ni, dict(vpose=vpose, vi=vi, a_rows=fac._fused_arows()))
+    camera = ("de", "di", "pose", "iop", "p21", "i55")
+    whole = {}
+    for name in names:
+        kind, kernel, _, _ = whole_cases[name]
+        for key, t in bench_torch_fusedmv.glue_reads(kernel(), plan, ne, ni, kind).items():
+            if key in camera:
+                whole[(name, key)] = t.double()
+    t0 = time.perf_counter()
+    sp = split_band_plan(plan, N_SHARDS)
+    n_rank = sp.G_loc * sp.M
+    hpi = torch.nn.functional.pad(fac.hpi_t, (0, sp.rank_pad - fac.hpi_t.shape[1]))
+    print(f"[{tag}] split_band_plan over {N_SHARDS}: G_loc={sp.G_loc} slice_len={sp.slice_len} "
+          f"(of n_pad={plan.n_pad}) ({time.perf_counter() - t0:.1f} s on the host)")
+    summed, rows = {}, {}
+    for d in range(N_SHARDS):
+        data = fusedshard.build_fused_shard_data(p, layout, sp, d, dev)
+        _, acam_t, apt_t, a_rows = fusedshard.window_streams(kern, q, data.obs)
+        h = hpi[:, d * n_rank : (d + 1) * n_rank].contiguous()
+        window = SimpleNamespace(acam_t=acam_t, apt_t=apt_t, hpi_t=h)
+        cases = bench_torch_fusedmv.kernel_cases(
+            fusedmv, data.band, window, ne, ni, dict(vpose=vpose, vi=vi, a_rows=a_rows))
+        owned = int(sp.owned[d].sum())
+        flops = bench_torch_fusedmv.kernel_flops(owned, n_rank, ne, ni)
+        # the reads of a window's outputs: its ranks, every image
+        reads = SimpleNamespace(n_tie=n_rank, n_img=plan.n_img)
+        for name in names:
+            kind, kernel, plain, extra = cases[name]
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"[{tag}] FAIL: shard {d} {name} is not bitwise repeatable")
+            g = bench_torch_fusedmv.glue_reads(got, reads, ne, ni, kind)
+            w = bench_torch_fusedmv.glue_reads(want, reads, ne, ni, kind)
+            errs = {k: rel_norm(g[k], w[k]) for k in w}
+            max_abs = max(float((g[k].double() - w[k].double()).abs().max()) for k in w)
+            for key in g:
+                if key in camera:
+                    summed[(name, key)] = summed.get((name, key), 0) + g[key].double()
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            b_ms, b_by = bound((acam_t, apt_t, *bench_torch_fusedmv.band_inputs(data.band),
+                                *extra, *got), flops[name], torch.float32)
+            print(f"[{tag}] shard {d} ({owned} owned rows) {name}: rel err "
+                  + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                  + f" max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}; kernel {ms / b_ms:.2f}x) "
+                  f"[{card}]")
+            if not all(v <= KERNEL_TOL for v in errs.values()):
+                raise RuntimeError(f"[{tag}] FAIL: shard {d} {name} off its plain version: {errs}")
+            r = rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0))
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs)
+            if ms >= r["ms"]:  # the slowest window sets a step's pace
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shard=d)
+    errs = {f"{n.split('/')[-1]} {k}": rel_norm(summed[(n, k)], whole[(n, k)])
+            for n, k in whole}
+    print(f"[{tag}] camera-side outputs summed over the {N_SHARDS} windows against the "
+          f"unsharded kernels: " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    if not all(v <= KERNEL_TOL for v in errs.values()):
+        raise RuntimeError(f"[{tag}] FAIL: the windows do not sum to the operator: {errs}")
+    return rows
+
+
+def phase_distributed(p, layout, res6, res9, dev, card):
+    """The distributed solvers on an NCCL group of the visible cards (in
+    this process at one card), held against phases 6 and 9; the per-shard
+    kernels at 4 windows; the mesh estimate of the stds at a reduced
+    block."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import mesh as pmesh
+
+    tag = "16 distributed"
+    stds_p, pre = stds_block(dev)
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    args = (p, stds_p, pre.x, pre.sigma02)
+    if n == 1:
+        pmesh.init_distributed(f"tcp://127.0.0.1:{pmesh._free_port()}", 1, 0, "cuda:0",
+                               timeout_s=600)
+        try:
+            out = _distributed_rank(pmesh.make_mesh(), *args)
+        finally:
+            pmesh.shutdown()
+    else:
+        out = pmesh.run_ranks(_distributed_rank, n, "cuda", args=args, timeout_s=900)
+    print(f"[{tag}] process group: backend {out['backend']}, {out['size']} rank(s) "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if out["backend"] != "nccl" or out["size"] != n:
+        raise RuntimeError(f"[{tag}] FAIL: group {out['backend']} of {out['size']}")
+
+    for name, ref, tol in (("distributed", res9, X_TOL_F64), ("sharded", res9, X_TOL_F64),
+                           ("fused_sharded", res6, FUSED_SHARD_TOL)):
+        r = out[name]
+        diff = np.abs(r["x"] - ref.x)
+        viol = float(np.max(diff / (tol["atol"] + tol["rtol"] * np.abs(ref.x))))
+        walls = ", ".join(f"{w:.1f}" for w in r["walls"])
+        print(f"[{tag}] {name}: step walls {walls} ms; max |dx| from phase "
+              f"{9 if ref is res9 else 6}'s solve {diff.max():.3e} (tolerance use {viol:.3f}); "
+              f"sigma0^2 {r['sigma02']:.9f} vs {ref.sigma02:.9f}; cg {r['cg']} vs "
+              f"{ref.cg_iterations} [{card}]")
+        if not (r["finite"] and r["iterations"] == ref.iterations and viol <= 1.0):
+            raise RuntimeError(f"[{tag}] FAIL: {name} differs from phase "
+                               f"{9 if ref is res9 else 6}'s solve")
+    for what, us in out["psum_us"].items():
+        print(f"[{tag}] mesh.psum of {what}: {us:.1f} us a call (host wall over 200 "
+              f"calls, the card synchronized at the end) [{card}]")
+
+    rows = phase_shard_kernels(p, layout, schur.make_band_plan(
+        p, layout, schur.SchurOptions(dtype=np.float32)), dev, card)
+
+    # the stds block's exact stds against the mesh estimate, by phase 15's measures
+    st = out["stds"]
+    s_layout = ParamLayout(stds_p)
+    exact, _, method = covariance.compute_stds(stds_p, s_layout, pre.x, pre.sigma02,
+                                               max_images=1000, device=dev)
+    live = exact > 0
+    est = st["est"]
+    rel = np.abs(est[live] - exact[live]) / exact[live]
+    pos = live & (est > 0)
+    clipped = float((live.sum() - pos.sum()) / live.sum())
+    corr = float(np.corrcoef(np.log(est[pos]), np.log(exact[pos]))[0, 1])
+    its = st["its"]
+    print(f"[{tag}] stds block ({stds_p.n_img} images, {stds_p.n_obs} observations, "
+          f"u={s_layout.u}): mesh estimate (64 probes, float32, unfused) wall "
+          f"{st['wall']:.2f} s, {st['cgc']['calls']} CG solves, {sum(its)} iterations, "
+          f"{st['cgc']['matvecs']} matvecs; launches {st['launches']}, plain {st['plain']}; "
+          f"collectives {_coll(st['counts'])} [{card}]")
+    print(f"[{tag}] against the exact stds ({method}): median rel err {np.median(rel):.4f}, "
+          f"q90 {np.quantile(rel, 0.9):.4f}, clipped {clipped:.4%}, log-correlation {corr:.4f}")
+    if not (method == "exact" and np.isfinite(est).all() and clipped < 0.02 and corr > 0.95):
+        raise RuntimeError(f"[{tag}] FAIL: the mesh estimate: clipped {clipped}, "
+                           f"log-correlation {corr}")
+
+    # K4 at the distributed paths' shapes: a 4-card slice of the bench
+    # block's float64 stream (D = 6), and the stds block's float32 stream
+    n4 = schur.shard_rows(p.n_obs, N_SHARDS)[1]
+    n1 = schur.shard_rows(stds_p.n_obs, 1)[1]
+    g = np.random.default_rng(4)
+    k4 = {
+        "sharded": _k4_check(tag, f"float64 D=6 at a {N_SHARDS}-card slice", torch.as_tensor(
+            g.standard_normal((n4, 6)), dtype=torch.float64, device=dev)),
+        "stds mesh": _k4_check(tag, "float32 D=6 (stds block)", torch.as_tensor(
+            g.standard_normal((n1, 6)), dtype=torch.float32, device=dev)),
+    }
+    k4["sharded"]["launches"] = (out["distributed"]["launches"]["chunk_prefix"]
+                                 + out["sharded"]["launches"]["chunk_prefix"])
+    k4["stds mesh"]["launches"] = st["launches"]["chunk_prefix"]
+    for name in ("fused_hpp_pass", "fused_schur_apply"):
+        rows_name = name if name in rows else f"{name}/matvec_bf16"
+        rows[rows_name]["launches"] = out["fused_sharded"]["launches"][name]
+    return rows, k4
+
+
 def main():
     card = phase_environment()
     dev = torch.device("cuda")
@@ -1195,7 +1530,8 @@ def main():
     counts, main_res = phase_main_path(p, layout, plan, dev)
     seg = phase_segment(p, layout, dev)
     phase_unfused_reference(dev)
-    counts.update(phase_unfused_main_path(p, layout, dev))
+    k4_count, res9 = phase_unfused_main_path(p, layout, dev)
+    counts.update(k4_count)
     t0 = time.perf_counter()
     measured = phase_streamseg(dev) + phase_probes(dev)
     print(f"[11 probes] phases 10-11 took {time.perf_counter() - t0:.1f} s")
@@ -1212,6 +1548,9 @@ def main():
     stds_launches, stds_probe = phase_stds(p, layout, main_res, dev, card)
     measured.append(stds_probe)
     print(f"[15 stds] phase 15 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shard_rows, shard_k4 = phase_distributed(p, layout, main_res, res9, dev, card)
+    print(f"[16 distributed] phase 16 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);
@@ -1252,6 +1591,30 @@ def main():
             launches=stds_launches[name], max_abs_err=max(errs[name]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t.get("library_ms"),
+        ))
+    # the kernels on phase 16's paths: K1 and K2 on a 4-card window of the
+    # split band plan (the slowest window's times and bound; the errors the
+    # largest over the windows and K2's modes; launches of the
+    # fused_sharded solve), K4 under the distributed and sharded solves'
+    # sums and the mesh estimator's (float32)
+    k2_err = max(v["max_abs_err"] for k, v in shard_rows.items()
+                 if k.startswith("fused_schur_apply"))
+    for name, key in (("fused_hpp_pass", "fused_hpp_pass"),
+                      ("fused_schur_apply", "fused_schur_apply/matvec_bf16")):
+        r = shard_rows[key]
+        table.append(dict(
+            name=f"{name}/sharded", route="cuda", source=SOURCES[name],
+            replaces=[REPLACES[name]], launches=r["launches"],
+            max_abs_err=k2_err if name == "fused_schur_apply" else r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+        ))
+    for label, r in shard_k4.items():
+        table.append(dict(
+            name=f"chunk_prefix/{label}", route="cuda", source=SOURCES["chunk_prefix"],
+            replaces=[REPLACES["chunk_prefix"]], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     for probe, r in measured:
         table.append(dict(

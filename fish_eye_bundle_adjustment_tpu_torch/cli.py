@@ -14,13 +14,19 @@ for the CPU (`device="cpu"`, `--cpu`); without a card and without that
 request it fails.  Solvers: `dense` runs the dense parity solver, `schur`
 the Schur solver with its defaults (float64, the explicit dense reduced
 camera system up to 600 images, the stds of solver/covariance.py), and
-`auto` picks dense at u <= 3000 and schur above; the scale modes wait for
-their ROADMAP.md items and raise NotImplementedError naming them.
+`auto` picks dense at u <= 3000 and schur above.  The scale modes
+`distributed`, `sharded` and `fused_sharded` run the solvers of
+parallel/ over `--devices` ranks (default: every visible card): started
+plainly the CLI spawns them, rank r on cuda:r over NCCL (or, with --cpu,
+gloo ranks on the CPU); started under torchrun (WORLD_SIZE set) it is one
+of them.  Rank 0 prints and writes the reports.  `posegraph` waits for
+its ROADMAP.md item and raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from pathlib import Path
@@ -30,11 +36,9 @@ REQUIRED_EXTS = (".pho", ".ext", ".cnt", ".int")
 
 # What each solver outside the port so far waits for (ROADMAP.md Queue 1).
 _NOT_PORTED = {
-    "distributed": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
-    "sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
-    "fused_sharded": "parallel/ on torch.distributed (ROADMAP.md Queue 1, item 8)",
     "posegraph": "parallel/posegraph.py (ROADMAP.md Queue 1, item 9)",
 }
+SCALE_MODES = ("distributed", "sharded", "fused_sharded")
 
 
 def main(folder, plot: bool = True, cfg: Optional[str] = None,
@@ -71,6 +75,8 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
         print(f"Error during adjustment: {e}", file=sys.stderr)
         return 1
     elapsed = time.perf_counter() - t0
+    if not _writes_reports():
+        return 0
 
     for i, d in enumerate(result.delta_history, 1):
         print(f"Iteration {i}: sum|delta| = {d:.6g}")
@@ -122,11 +128,80 @@ def _solve(problem, solver: str, checkpoint: Optional[str] = None,
             problem, progress_fn=log_progress, checkpoint_path=checkpoint,
             keep_history=keep_history, device=device,
         )
+    if solver in SCALE_MODES:
+        return _solve_scale(problem, solver, checkpoint, devices, keep_history, device)
     if solver in _NOT_PORTED:
         raise NotImplementedError(
             f"--solver {solver}: needs {_NOT_PORTED[solver]}, not ported yet"
         )
     raise ValueError(f"unknown solver {solver!r}")
+
+
+def _writes_reports() -> bool:
+    """Rank 0 of a torchrun group prints and writes; a lone process does."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _solve_scale(problem, solver, checkpoint, devices, keep_history, device):
+    """A scale mode over `devices` ranks: this process's rank under
+    torchrun, else spawned ranks (parallel/mesh.run_ranks), whose rank 0
+    hands its result back."""
+    import torch
+
+    from fish_eye_bundle_adjustment_tpu_torch import cli
+    from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        run_ranks,
+    )
+
+    on_cpu = device is not None and str(device) == "cpu"
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            init_distributed(device="cpu" if on_cpu else None)
+        return cli.solve_on_mesh(make_mesh(devices), problem, solver, checkpoint,
+                                 keep_history)
+    if not on_cpu and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass --cpu for gloo ranks on the CPU")
+    n = devices or max(torch.cuda.device_count(), 1)
+    return run_ranks(cli.solve_on_mesh, n, "cpu" if on_cpu else "cuda",
+                     args=(problem, solver, checkpoint, keep_history))
+
+
+def solve_on_mesh(mesh, problem, solver: str, checkpoint=None, keep_history=False):
+    """One rank's part of a scale mode (every rank calls it alike), with
+    the JAX CLI's choices: fused_sharded at float32, every mode with the
+    stds a report prints."""
+    import numpy as np
+
+    from fish_eye_bundle_adjustment_tpu_torch.utils.observe import log_progress
+
+    kw = dict(progress_fn=log_progress, checkpoint_path=checkpoint,
+              keep_history=keep_history, compute_covariance=True)
+    if solver == "fused_sharded":
+        from fish_eye_bundle_adjustment_tpu_torch.parallel.fusedshard import (
+            solve_schur_fused_sharded,
+        )
+        from fish_eye_bundle_adjustment_tpu_torch.solver.schur import SchurOptions
+
+        return solve_schur_fused_sharded(problem, mesh, SchurOptions(dtype=np.float32), **kw)
+    if solver == "distributed":
+        from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import (
+            solve_schur_distributed,
+        )
+
+        return solve_schur_distributed(problem, mesh, **kw)
+    if solver == "sharded":
+        from fish_eye_bundle_adjustment_tpu_torch.parallel.sharded_state import (
+            solve_schur_sharded_state,
+        )
+
+        return solve_schur_sharded_state(problem, mesh, **kw)
+    raise ValueError(f"unknown scale mode {solver!r}")
 
 
 def find_datasets(root) -> list:
@@ -182,12 +257,13 @@ def _build_parser() -> argparse.ArgumentParser:
                  "fused_sharded", "posegraph"),
         default="auto",
         help="dense parity solver, Schur solver, or size-based auto (dense at "
-             "u <= 3000, schur above); the scale modes (distributed, sharded, "
-             "fused_sharded, posegraph) are not ported yet and fail naming what "
-             "they need",
+             "u <= 3000, schur above); distributed, sharded and fused_sharded run "
+             "over --devices ranks; posegraph is not ported yet and fails naming "
+             "what it needs",
     )
     ap.add_argument("--devices", type=int,
-                    help="mesh size for --solver distributed/sharded (not ported yet)")
+                    help="ranks of --solver distributed/sharded/fused_sharded (default: "
+                         "every visible CUDA card; with --cpu, 1)")
     ap.add_argument("--blocks", type=int, default=4,
                     help="number of image partitions for --solver posegraph (not ported yet)")
     ap.add_argument("--out-dir", help="write outputs here instead of the dataset folder")

@@ -140,13 +140,21 @@ class DualAxisPlan:
         )
 
     @staticmethod
-    def build_sharded(primary_ids, n_primary, secondary_ids, n_secondary,
-                      n_shards):
-        """Per-shard plans for an observation axis split over devices."""
-        raise NotImplementedError(
-            "DualAxisPlan.build_sharded: needs parallel/ on torch.distributed "
-            "(ROADMAP.md Queue 1, item 8), not ported yet"
-        )
+    def build_sharded(primary_ids: np.ndarray, n_primary: int,
+                      secondary_ids: np.ndarray, n_secondary: int,
+                      n_shards: int, shard: int, device="cpu") -> "DualAxisPlan":
+        """Shard `shard`'s plan of a stream split into `n_shards` equal
+        contiguous slices (a rank holds one; the JAX package stacks them
+        all).  The stream is sorted on the primary axis, so each slice is
+        too; a segment that straddles a slice boundary is summed in part
+        by each shard, and the caller's all-reduce completes it.  Row
+        offsets are local to the slice."""
+        n = primary_ids.shape[0]
+        assert n % n_shards == 0, (n, n_shards)
+        m = n // n_shards
+        sl = slice(shard * m, (shard + 1) * m)
+        return DualAxisPlan.build(primary_ids[sl], n_primary, secondary_ids[sl],
+                                  n_secondary, device)
 
     def secondary_sum(self, vals):
         return sorted_segment_sum(vals[self.perm], self.secondary)

@@ -54,10 +54,6 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.explicit import (
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 
-_NOT_PORTED_MESH = ("needs parallel/ on torch.distributed (ROADMAP.md Queue 1, "
-                    "item 8), not ported yet")
-
-
 @dataclasses.dataclass
 class SchurCovariance:
     std: np.ndarray  # (u,) sigma0-scaled, de-scaled to x units
@@ -320,9 +316,12 @@ def estimate_schur_stds(
     is linearized ONCE and its factors serve every solve (the JAX package
     re-linearizes inside each jitted probe; the numbers are the same).  A
     single-camera float32 block takes the fused operator, so every CG
-    matvec is one K2 launch.  `mesh` (the JAX package's SPMD probe
-    solves) raises NotImplementedError.  `info`, when given, receives the
-    CG iterations of every solve."""
+    matvec is one K2 launch.  With `mesh` (parallel/mesh.Mesh, every rank
+    calling) the probe solves run over it, as the JAX package's SPMD probe
+    solves: each rank holds its slice of the float32 unfused tie-sorted
+    stream (the chunk prefix K4 under its sums) on mesh.device, and every
+    sum is all-reduced, so every rank returns the same stds.  `info`, when
+    given, receives the CG iterations of every solve."""
     from fish_eye_bundle_adjustment_tpu_torch.solver.schur import (
         ObsData,
         SchurKernel,
@@ -333,15 +332,19 @@ def estimate_schur_stds(
         torch_dtype,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(f"estimate_schur_stds(mesh=...): {_NOT_PORTED_MESH}")
-    dev = resolve_device(device, "estimate_schur_stds")
     tdt = torch_dtype(dtype)
     opts = SchurOptions(dtype=dtype, obs_order="tie")
-    kernel = SchurKernel(layout, opts)
-    band_plan = make_band_plan(problem, layout, opts)
-    obs = ObsData.from_problem(problem, layout, band_plan, dtype=dtype, device=dev,
-                               obs_order="tie")
+    if mesh is None:
+        dev = resolve_device(device, "estimate_schur_stds")
+        kernel = SchurKernel(layout, opts)
+        band_plan = make_band_plan(problem, layout, opts)
+        obs = ObsData.from_problem(problem, layout, band_plan, dtype=dtype, device=dev,
+                                   obs_order="tie")
+    else:
+        dev = mesh.device
+        kernel = SchurKernel(layout, opts, reduce_fn=mesh.psum)
+        obs = ObsData.from_problem(problem, layout, None, dtype=dtype, device=dev,
+                                   obs_order="tie", n_shards=mesh.size, shard=mesh.index)
     use_ic = problem.settings.inner_constraints
     q = torch.as_tensor((np.asarray(x) * layout.scale).astype(dtype), device=dev)
     nc, nt = kernel.nc, kernel.n_tie
@@ -470,7 +473,10 @@ def compute_stds(
     """Stds for every unknown: exact block covariance below the dense-S
     gate, Hutchinson estimate past it (the reference always reports
     +-sigma, main.m:712-897).  Returns (std, Cc_q or None, method).
-    `pieces` goes to schur_covariance, `info` to estimate_schur_stds."""
+    `mesh` (from a distributed solver, every rank calling) runs the
+    estimate's probe solves over it; the exact covariance runs alike on
+    every rank, on `device`.  `pieces` goes to schur_covariance, `info`
+    to estimate_schur_stds."""
     cov = schur_covariance(problem, layout, x, sigma02, max_images=max_images,
                            device=device, pieces=pieces)
     if cov is not None:

@@ -175,6 +175,16 @@ def _inv3x3(M):
     return torch.stack(rows, dim=-2) * inv_det[..., None, None]
 
 
+def shard_rows(n: int, n_shards: int):
+    """(m, n_loc): the rows of the stream each of n_shards slices takes --
+    the JAX package pads the stream to a multiple of n_shards and cuts it
+    into equal contiguous slices of m rows -- and the rows each slice is
+    padded to here, whole CHUNKs (at least one), so that no segment sum
+    pads it again."""
+    m = -(-n // n_shards)
+    return m, max(1, -(-m // CHUNK)) * CHUNK
+
+
 @dataclasses.dataclass
 class ObsData:
     """Per-observation tensors on one device, with the structure that
@@ -206,7 +216,8 @@ class ObsData:
 
     @staticmethod
     def from_problem(problem: BAProblem, layout: ParamLayout, band_plan=None,
-                     dtype=np.float32, device="cpu", obs_order="tie") -> "ObsData":
+                     dtype=np.float32, device="cpu", obs_order="tie",
+                     n_shards: Optional[int] = None, shard: int = 0) -> "ObsData":
         """With `band_plan`: the stream sorted by tie RANK (tie ids
         relabeled to ranks) and padded to the plan's n_pad, with the
         BandArrays attached.  Without one, the unfused path's stream,
@@ -220,13 +231,23 @@ class ObsData:
         package's stream, in float64 a SortPlan.  Padding rows have zero
         weight and the dummy tie slot; the unfused ones repeat the last
         row's image, point and coordinates, so their (ignored) residuals
-        stay finite."""
+        stay finite.
+
+        `n_shards` (unfused only): rank `shard`'s slice of that stream, as
+        the JAX package splits it over a mesh: the stream cut into
+        n_shards contiguous slices of ceil(n_obs / n_shards) rows (see
+        shard_rows), each padded on its own to whole CHUNKs, with the
+        plans of its own rows (DualAxisPlan.build_sharded, local row
+        offsets).  Every rank holds as many rows; `order` lists the host
+        rows of the slice's live ones."""
         n = problem.n_obs
         tie = problem.target_tie_slot[problem.obs_pt]
         # control obs, and every obs when the tie points are held fixed
         # (layout.n_tie == 0), go to the dummy slot n_tie
         tie = np.where((tie >= 0) & (tie < layout.n_tie), tie, layout.n_tie)
         band = None
+        if band_plan is not None and n_shards:
+            raise ValueError("a band plan is split by split_band_plan, not by shards")
         if band_plan is not None:
             live = tie < layout.n_tie
             tie = np.where(
@@ -235,28 +256,43 @@ class ObsData:
                 layout.n_tie,
             )
             order = band_plan.order
-            pad = band_plan.n_pad - n
+            # stream row -> host row; padding rows read row 0 and are filled
+            idx = np.concatenate([order, np.zeros(band_plan.n_pad - n, np.int64)])
+            live = np.arange(band_plan.n_pad) < n
             band = BandArrays.from_plan(band_plan, device)
-            mode = "constant"
+            edge = False
         else:
             # the span segment sum takes float32 only
             direct = np.dtype(dtype) == np.float32
             by_img = direct and obs_order != "tie"
-            if by_img:
-                order = np.argsort(problem.obs_img, kind="stable")
-            else:
-                order = ObsData.sort_order_by_tie(problem, layout)
-            pad = -n % CHUNK
-            mode = "edge"
+            order = ObsData.stream_order(problem, layout, dtype, obs_order)
+            # each row's position in the JAX package's stream: problem
+            # order, or its tie-sorted order (this stream's own)
+            pos = np.empty(n, np.int64)
+            pos[order] = order if by_img else np.arange(n)
+            # the whole stream, slice by slice (one slice on one device):
+            # stream row -> host row, padding rows repeating their slice's
+            # last row (the stream's, for an empty slice)
+            n_sh = n_shards or 1
+            m, n_loc = shard_rows(n, n_sh)
+            idx_all = np.empty(n_sh * n_loc, np.int64)
+            live_all = np.zeros(n_sh * n_loc, bool)
+            for r in range(n_sh):
+                rows = order[r * m : (r + 1) * m]
+                last = rows[-1:] if len(rows) else order[-1:]
+                idx_all[r * n_loc : (r + 1) * n_loc] = np.concatenate(
+                    [rows, np.repeat(last, n_loc - len(rows))])
+                live_all[r * n_loc : r * n_loc + len(rows)] = True
+            sl = slice(shard * n_loc, (shard + 1) * n_loc)
+            idx, live = idx_all[sl], live_all[sl]
+            order = idx[live]
+            edge = True
 
         def _host(a, fill=None):
-            a = a[order]
-            if pad:
-                width = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
-                if fill is not None:
-                    a = np.pad(a, width, constant_values=fill)
-                else:
-                    a = np.pad(a, width, mode=mode)
+            a = a[idx]
+            if fill is not None or not edge:
+                mask = live.reshape((-1,) + (1,) * (a.ndim - 1))
+                a = np.where(mask, a, 0 if fill is None else fill).astype(a.dtype)
             return a
 
         on_dev = lambda a: torch.as_tensor(a, device=device)
@@ -265,22 +301,19 @@ class ObsData:
         cam_h = _host(problem.obs_cam.astype(np.int64))
         plans = {}
         if band is None:
-            # each row's position in the JAX package's stream: problem
-            # order, or its tie-sorted order (this stream's own)
-            rank = (np.concatenate([order, n + np.arange(pad)]) if by_img
-                    else np.arange(n + pad))
+            rank = np.where(live, pos[idx], n + np.arange(len(idx)))
             # the direct sums read no padding row, and no row of the dummy
             # tie slot, whose sum no caller reads: their ids are past the
             # last segment
-            live = np.arange(n + pad) < n
             if by_img:
                 plans["by_tie"] = DirectPlan.build(tie_h, layout.n_tie, rank, device)
                 plans["by_img"] = DirectPlan.build(
                     np.where(live, img_h, layout.n_img), layout.n_img, rank, device)
             else:
-                plans["plan"] = DualAxisPlan.build(
-                    tie_h, layout.n_tie + 1, img_h, layout.n_img, device
-                )
+                tie_all = np.where(live_all, tie[idx_all], layout.n_tie)
+                plans["plan"] = DualAxisPlan.build_sharded(
+                    tie_all, layout.n_tie + 1, problem.obs_img[idx_all].astype(np.int64),
+                    layout.n_img, n_sh, shard, device)
             if problem.n_cam > 1:
                 plans["by_cam"] = (
                     DirectPlan.build(np.where(live, cam_h, problem.n_cam),
@@ -301,6 +334,14 @@ class ObsData:
             band=band,
             **plans,
         )
+
+    @staticmethod
+    def stream_order(problem: BAProblem, layout: ParamLayout, dtype, obs_order) -> np.ndarray:
+        """Host order of the unfused stream: image-major at float32 with
+        `obs_order` other than "tie" (the direct sums'), else tie-sorted."""
+        if np.dtype(dtype) == np.float32 and obs_order != "tie":
+            return np.argsort(problem.obs_img, kind="stable")
+        return ObsData.sort_order_by_tie(problem, layout)
 
     @staticmethod
     def sort_order_by_tie(problem: BAProblem, layout: ParamLayout) -> np.ndarray:
@@ -404,11 +445,17 @@ class SchurOptions:
 
 
 class SchurKernel:
-    """Static problem structure + the block-sparse linear algebra."""
+    """Static problem structure + the block-sparse linear algebra.
 
-    def __init__(self, layout: ParamLayout, opts: SchurOptions):
+    `reduce_fn` is applied after every observation-axis segment sum and
+    every sum over the stream: the identity on one device, a mesh's
+    all-reduce (parallel/mesh.Mesh.psum) when each rank holds a slice of
+    the stream."""
+
+    def __init__(self, layout: ParamLayout, opts: SchurOptions, reduce_fn=None):
         self.layout = layout
         self.opts = opts
+        self.reduce = reduce_fn or (lambda t: t)
         self.model_id = MODEL_IDS[layout.problem.settings.model]
         self.nk = layout.nk
         self.n_img = layout.n_img
@@ -480,7 +527,7 @@ class SchurKernel:
         )
         w = obs.W
         rm = torch.where(w > 0, r, torch.zeros_like(r))
-        return _stable_sum(w[:, 0] * rm[:, 0] ** 2 + w[:, 1] * rm[:, 1] ** 2)
+        return self.reduce(_stable_sum(w[:, 0] * rm[:, 0] ** 2 + w[:, 1] * rm[:, 1] ** 2))
 
     def linearize(self, q, obs: ObsData, lam=None) -> "SchurFactors":
         """`lam` (0-d tensor or None) is the adaptive LM parameter:
@@ -502,7 +549,7 @@ class SchurKernel:
              for a in range(3) for b in range(a, 3)],
             dim=1,
         )  # (N, 6)
-        Hs = obs.tie_sum(sym6)[:nt]
+        Hs = self.reduce(obs.tie_sum(sym6)[:nt])
         Hpp_inv = self._damped_hpp_inv(Hs, lam) if nt else rx.new_zeros((0, 3, 3))
         # row-flattened with a zero dummy row for per-observation gathers
         Hpi_flat = torch.cat([Hpp_inv.reshape(nt, 9), Hpp_inv.new_zeros((1, 9))])
@@ -514,10 +561,10 @@ class SchurKernel:
             parts = []
             if self.ne:
                 de = wx[:, None] * Jex**2 + wy[:, None] * Jey**2  # (N, ne)
-                parts.append(_clamp_diag(obs.img_sum(de)).reshape(-1))
+                parts.append(_clamp_diag(self.reduce(obs.img_sum(de))).reshape(-1))
             if self.ni:
                 di = wx[:, None] * Jix**2 + wy[:, None] * Jiy**2
-                parts.append(_clamp_diag(obs.cam_sum(di)).reshape(-1))
+                parts.append(_clamp_diag(self.reduce(obs.cam_sum(di))).reshape(-1))
             dcc = torch.cat(parts) if parts else rx.new_zeros((0,))
         return SchurFactors(
             self, obs, rx, ry, Jex, Jey, Jix, Jiy, Jpx, Jpy, Hpi_flat, dcc=dcc,
@@ -557,21 +604,7 @@ class SchurKernel:
         band = obs.band
         nt = self.n_tie
         f32 = torch.float32
-        sx = torch.sqrt(wx).to(f32)
-        sy = torch.sqrt(wy).to(f32)
-        rows = [(Jex * sx[:, None]).T, (Jey * sy[:, None]).T]
-        if self.ni:
-            rows += [(Jix * sx[:, None]).T, (Jiy * sy[:, None]).T]
-        acam_t = torch.cat(rows, dim=0).to(f32)
-        ca_pad = -acam_t.shape[0] % 8
-        n_here = acam_t.shape[1]
-        acam_t = torch.nn.functional.pad(
-            acam_t, (0, band.n_pad - n_here, 0, ca_pad)
-        ).contiguous()
-        apt_t = torch.cat([(Jpx * sx[:, None]).T, (Jpy * sy[:, None]).T]).to(f32)
-        apt_t = torch.nn.functional.pad(
-            apt_t, (0, band.n_pad - n_here, 0, 2)
-        ).contiguous()
+        acam_t, apt_t = fold_streams(wx, wy, Jex, Jey, Jix, Jiy, Jpx, Jpy, band.n_pad)
         hs8, de8, di8 = fused_hpp_pass(
             band, acam_t, apt_t, self.ne, self.ni,
             precision=self.opts.fused_precision,
@@ -612,6 +645,33 @@ class SchurKernel:
             and self.ne > 0
             and self.ni <= _MAX_FUSED_IOP
         )
+
+
+def fold_streams(wx, wy, Jex, Jey, Jix, Jiy, Jpx, Jpy, n_cols):
+    """The fused kernels' streams: the Jacobian blocks folded by sqrt(w),
+    float32, transposed and zero-padded to (CA, n_cols) -- the camera rows
+    [Jex; Jey; Jix; Jiy] padded to a multiple of 8 -- and (8, n_cols)."""
+    f32 = torch.float32
+    sx = torch.sqrt(wx).to(f32)
+    sy = torch.sqrt(wy).to(f32)
+    rows = [(Jex * sx[:, None]).T, (Jey * sy[:, None]).T]
+    if Jix.shape[1]:
+        rows += [(Jix * sx[:, None]).T, (Jiy * sy[:, None]).T]
+    acam_t = torch.cat(rows, dim=0).to(f32)
+    pad_cols = n_cols - acam_t.shape[1]
+    acam_t = torch.nn.functional.pad(
+        acam_t, (0, pad_cols, 0, -acam_t.shape[0] % 8)).contiguous()
+    apt_t = torch.cat([(Jpx * sx[:, None]).T, (Jpy * sy[:, None]).T]).to(f32)
+    apt_t = torch.nn.functional.pad(apt_t, (0, pad_cols, 0, 2)).contiguous()
+    return acam_t, apt_t
+
+
+def fold_residuals(wx, wy, rx, ry, n_cols):
+    """Whitened residual rows for the fused kernels' injection, float32,
+    zero-padded to (8, n_cols)."""
+    rows = torch.stack([(torch.sqrt(wx) * rx).to(torch.float32),
+                        (torch.sqrt(wy) * ry).to(torch.float32)])
+    return torch.nn.functional.pad(rows, (0, n_cols - rows.shape[1], 0, 6)).contiguous()
 
 
 class SchurFactors:
@@ -678,12 +738,12 @@ class SchurFactors:
         if k.ni:
             g = self.Jix * bx[:, None] + self.Jiy * by[:, None]
             parts.append(self.obs.cam_sum(g).reshape(-1))
-        return torch.cat(parts) if parts else self.rx.new_zeros((0,))
+        return k.reduce(torch.cat(parts)) if parts else self.rx.new_zeros((0,))
 
     def _point_applyT(self, bx, by):
         """P^T b -> (n_tie, 3) (dummy control slot dropped)."""
         tp = self.Jpx * bx[:, None] + self.Jpy * by[:, None]  # (N, 3)
-        return self.obs.tie_sum(tp)[: self.k.n_tie]
+        return self.k.reduce(self.obs.tie_sum(tp)[: self.k.n_tie])
 
     def _point_apply(self, vp):
         """(px, py) = P vp per observation; control obs contribute zero."""
@@ -728,14 +788,8 @@ class SchurFactors:
 
     def _fused_arows(self):
         """Whitened residual rows (8, n_pad) for rhs/backsub injection."""
-        band = self.obs.band
         wx, wy = self._w
-        ax = (torch.sqrt(wx) * self.rx).to(torch.float32)
-        ay = (torch.sqrt(wy) * self.ry).to(torch.float32)
-        rows = torch.stack([ax, ay])
-        return torch.nn.functional.pad(
-            rows, (0, band.n_pad - rows.shape[1], 0, 6)
-        ).contiguous()
+        return fold_residuals(wx, wy, self.rx, self.ry, self.obs.band.n_pad)
 
     def _fused_apply(self, vpose=None, vi=None, a_rows=None,
                      with_precond=False, precision=None):
@@ -880,11 +934,13 @@ class SchurFactors:
 
     def pose_precond_blocks(self):
         """Exact Schur-Jacobi diagonal: per-image (ne, ne) blocks of S."""
-        return self._sym_blocks(self.obs.img_sum(self.pose_precond_sym()), self.k.ne)
+        k = self.k
+        return self._sym_blocks(k.reduce(self.obs.img_sum(self.pose_precond_sym())), k.ne)
 
     def iop_precond_blocks(self):
         """Per-camera (ni, ni) IOP diagonal blocks."""
-        return self._sym_blocks(self.obs.cam_sum(self.iop_precond_sym()), self.k.ni)
+        k = self.k
+        return self._sym_blocks(k.reduce(self.obs.cam_sum(self.iop_precond_sym())), k.ni)
 
     def make_preconditioner(self, lam=None):
         """(preconditioner, raw diag(Hcc) or None); lam damps the blocks
@@ -966,7 +1022,14 @@ def reset_cg_counts():
         cg_counts[key] = 0
 
 
-def _pcg(matvec, b, precond, project, tol, maxiter):
+def _tmap(fn, *vs):
+    """fn leaf by leaf over CG vectors: tensors, or tuples of tensors."""
+    if isinstance(vs[0], tuple):
+        return tuple(fn(*leaves) for leaves in zip(*vs))
+    return fn(*vs)
+
+
+def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
     """Projected preconditioned CG with masked iterations, as the JAX
     package's _pcg runs it.
 
@@ -979,15 +1042,20 @@ def _pcg(matvec, b, precond, project, tol, maxiter):
     with no host read; otherwise one flag (i < maxiter, r'r > tol^2 b'b,
     guard not tripped) is read back before each block of _CG_UNROLL.  The
     semantics are the guarded loop's: the same updates while active, the
-    same x, count and stop.  Curvature guard: on a PD system p'Ap > 0 in
+    same x, count and stop.  The vectors are tensors, or tuples of tensors
+    with `dot` their inner product (the sharded camera state of
+    parallel/sharded_state.py: a rank's pose slice and the replicated
+    IOPs, its dot an all-reduce); the flag read back must then be equal on
+    every rank, which it is when `dot` is.  Curvature guard: on a PD system p'Ap > 0 in
     exact arithmetic, but f32 rounding near the CG noise floor of an
     ill-conditioned system can measure p'Ap <= 0 -- the unguarded step
     would then be huge and wrong-signed, so CG stops at the current
     iterate instead.  Masked iterations still run the matvec.  Returns
     (x, iterations taken as a 0-d int32 tensor, ||r|| / ||b||)."""
     cg_counts["calls"] += 1
+    dot = dot or torch.dot
     b = project(b)
-    bnorm2 = torch.dot(b, b)
+    bnorm2 = dot(b, b)
     tol2 = tol * tol * bnorm2
     zero, one = torch.zeros_like(bnorm2), torch.ones_like(bnorm2)
 
@@ -997,25 +1065,26 @@ def _pcg(matvec, b, precond, project, tol, maxiter):
 
     def masked_iter(state):
         i, x, r, z, p, rz, ok = state
-        active = (torch.dot(r, r) > tol2) & (i < maxiter) & ok
+        active = (dot(r, r) > tol2) & (i < maxiter) & ok
         Ap = mv(p)
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         ok = ok & (pAp > 0)
         take = active & (pAp > 0)
         alpha = torch.where(take, rz / torch.where(pAp != 0, pAp, one), zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = _tmap(lambda x_, p_: x_ + alpha * p_, x, p)
+        r = _tmap(lambda r_, a_: r_ - alpha * a_, r, Ap)
         z = project(precond(r))
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         beta = torch.where(take, rz_new / torch.where(rz != 0, rz, one), zero)
-        p = torch.where(take, z + beta * p, p)
+        p = _tmap(lambda z_, p_: torch.where(take, z_ + beta * p_, p_), z, p)
         rz = torch.where(take, rz_new, rz)
         return i + take.to(torch.int32), x, r, z, p, rz, ok
 
     z0 = project(precond(b))
-    state = (torch.zeros((), dtype=torch.int32, device=b.device),
-             torch.zeros_like(b), b, z0, z0, torch.dot(b, z0),
-             torch.ones((), dtype=torch.bool, device=b.device))
+    dev = bnorm2.device
+    state = (torch.zeros((), dtype=torch.int32, device=dev),
+             _tmap(torch.zeros_like, b), b, z0, z0, dot(b, z0),
+             torch.ones((), dtype=torch.bool, device=dev))
     if maxiter <= 2 * _CG_UNROLL:
         for _ in range(maxiter):
             state = masked_iter(state)
@@ -1023,13 +1092,13 @@ def _pcg(matvec, b, precond, project, tol, maxiter):
         def go_on(state):
             i, _, r, *_, ok = state
             cg_counts["host_reads"] += 1
-            return bool((i < maxiter) & (torch.dot(r, r) > tol2) & ok)
+            return bool((i < maxiter) & (dot(r, r) > tol2) & ok)
 
         while go_on(state):
             for _ in range(_CG_UNROLL):
                 state = masked_iter(state)
     i, x, r = state[:3]
-    return x, i, torch.sqrt(torch.dot(r, r) / bnorm2)
+    return x, i, torch.sqrt(dot(r, r) / bnorm2)
 
 
 def make_projection_builder(layout, nc, use_ic: bool):
@@ -1110,7 +1179,9 @@ def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
         vx = torch.where(wx > 0, ax + px + fac.rx, zero)
         vy = torch.where(wy > 0, ay + py + fac.ry, zero)
         vPv = _stable_sum(vx * vx * wx + vy * vy * wy)
-        stats = torch.stack([vPv, (vx * vx).sum(), (vy * vy).sum(), cost_old])
+        # the four sums over the stream, reduced together
+        stats = kernel.reduce(
+            torch.stack([vPv, (vx * vx).sum(), (vy * vy).sum(), cost_old]))
         v_local = torch.stack([vx, vy], dim=1)
         return x + delta_x, delta_x.abs().sum(), v_local, stats, cg_iters
 
@@ -1120,7 +1191,7 @@ def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
 def run_gn_loop(step, obs, layout, problem, opts: SchurOptions,
                 keep_history=False, x0=None, progress_fn=None,
                 checkpoint_path=None, checkpoint_every: int = 1,
-                device="cpu"):
+                device="cpu", writes_checkpoints: bool = True):
     """The outer Gauss-Newton driver: convergence on L1 of the de-scaled
     correction vs Threshold_Value with Iteration_Cap (main.m:412,487-493),
     adaptive Eisenstat-Walker forcing for the inner CG tolerance,
@@ -1135,6 +1206,10 @@ def run_gn_loop(step, obs, layout, problem, opts: SchurOptions,
     are always accepted; an eps^(2/3) relative slack absorbs summation
     noise in the cost difference; lambda > max_damping raises
     SolverDivergence.
+
+    Under a mesh every rank runs this loop in lockstep on replicated
+    values; each resumes from the checkpoint, and only the rank with
+    `writes_checkpoints` saves one.
 
     Returns (x, history, delta_history, v_local, stats, count, converged,
     elapsed, stopped_on)."""
@@ -1189,7 +1264,8 @@ def run_gn_loop(step, obs, layout, problem, opts: SchurOptions,
             progress_fn(IterationRecord(
                 count, deltasum, watch.lap(), cg_tol, damping=lam,
             ))
-        if checkpoint_path is not None and count % checkpoint_every == 0:
+        if (checkpoint_path is not None and writes_checkpoints
+                and count % checkpoint_every == 0):
             ckpt_mod.save_checkpoint(
                 checkpoint_path,
                 ckpt_mod.SolverCheckpoint(

@@ -142,3 +142,50 @@ def stress_streams(plan, ne=6, ni=6, seed=0):
     return dict(acam_t=f32(ca, plan.n_pad), apt_t=f32(8, plan.n_pad),
                 hpi_t=f32(16, plan.G * plan.M), vpose=f32(8, plan.n_img_pad),
                 vi=f32(128), a_rows=f32(8, plan.n_pad))
+
+
+def jax_dist_run(make_step, problem, n_dev, opts, xs=(), lams=(0.0,), cg_tol=1e-2,
+                 solve=True, **kw):
+    """A JAX distributed solver's step at each x of `xs` and lam of `lams`
+    ([(x_trial, L1(delta), stats, cg iterations, residual rows)]), then,
+    with `solve`, its whole solve: the body of solve_schur_distributed
+    (and of its sharded-state and fused twins) at device_loop=False -- the
+    host loop over the same step, so each block and mode compiles once.
+    `make_step` is make_distributed_step, make_sharded_camera_step or
+    make_fused_sharded_step; `kw` goes to it.  The residual rows are in
+    the stream's order (the fused mode's: the concatenated windows), the
+    solve's in report order."""
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from fish_eye_bundle_adjustment_tpu.parallel.mesh import make_mesh
+    from fish_eye_bundle_adjustment_tpu.solver import schur as jschur
+
+    mesh = make_mesh(n_dev)
+    step, data, layout, extra = make_step(problem, mesh, opts, **kw)
+    dt = np.dtype(opts.dtype)
+    steps = []
+    for x in xs:
+        for lam in lams:
+            x1, d, v, stats, cg = step(jnp.asarray(np.asarray(x, dt)), data,
+                                       jnp.asarray(cg_tol, dt), jnp.asarray(lam, dt))
+            steps.append((np.asarray(x1), float(d), np.asarray(stats), int(cg),
+                          np.asarray(v).reshape(-1, 2)))
+    if not solve:
+        return steps, None
+    (x, history, delta_history, v_shard, stats, count, converged,
+     elapsed, stopped_on) = jschur.run_gn_loop(
+        step, data, layout, problem, opts, x_sharding=NamedSharding(mesh, P()))
+    if hasattr(extra, "owned_pos"):  # the fused mode's split plan
+        v_np = np.asarray(v_shard).reshape(-1, 2)[extra.owned_pos].reshape(-1)
+    else:
+        v_np = jschur.unpermute_v(v_shard, extra, problem.n_obs)
+    res = jschur._finalize(problem, layout, x, history, delta_history, v_np,
+                           np.asarray(stats), count, converged, elapsed, False, stopped_on)
+    return steps, res
+
+
+def rel_err(got, want):
+    """Norm of the difference over the norm of `want`."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))

@@ -174,15 +174,6 @@ def test_compute_stds_switches_methods():
                              device="cpu") == (None, None, None)
 
 
-def test_estimator_mesh_raises():
-    """SPMD probe solves wait for parallel/ (ROADMAP Queue 1, item 8)."""
-    tp = to_port(jax_block("eop12"))
-    layout = TLayout(tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
-        tcov.estimate_schur_stds(tp, layout, layout.initial(), 1.0, mesh=object(),
-                                 device="cpu")
-
-
 # -- Part A: the sums of a banded stream ----------------------------------
 
 @functools.lru_cache(maxsize=None)

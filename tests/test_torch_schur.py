@@ -205,15 +205,6 @@ def test_formerly_raising_configurations_match_jax(case):
         assert got.std is None and got.std_method is None
 
 
-def test_sharded_segment_plans_raise():
-    """Per-shard segment plans wait for parallel/ (ROADMAP Queue 1, item 8)."""
-    from fish_eye_bundle_adjustment_tpu_torch.ops.segment import DualAxisPlan
-
-    ids = np.arange(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
-        DualAxisPlan.build_sharded(ids, 8, ids, 8, 2)
-
-
 def test_default_device_needs_cuda():
     """device=None means "cuda" and raises when there is no card."""
     if torch.cuda.is_available():
