@@ -11,12 +11,14 @@ Pallas kernels, its bench scripts, through their twins
 (bench_torch_streamseg.py, bench_torch_pallas_gather.py,
 bench_torch_pallas_onehot.py) at those scripts' sizes; then the dense
 CLI, the default solve_schur (the explicit dense S and the stds), the
-stds at the bench block, and the distributed solvers of parallel/ on an
-NCCL group.  Imports nothing of JAX.  Phases:
+stds at the bench block, the distributed solvers of parallel/ on an NCCL
+group, the device loop (the step as a CUDA graph) and the pose-graph
+merge.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
-                   gather, scatter), one process each, started together
+                   gather, scatter, and graphcond: the device loop's IF
+                   nodes), one process each, started together
                    (seconds, ptxas report; registers, spills and static
                    shared memory of K1's and K2's kernels in one line each)
   3. block         synth.make_block at the bench size, its band plan, and
@@ -37,8 +39,9 @@ NCCL group.  Imports nothing of JAX.  Phases:
   5. reference     a 12-image block solved on the card and on the CPU
                    (plain versions): x within rtol=3e-5, atol=3e-4
   6. main path     solve_schur(..., SchurOptions(dtype=float32,
-                   cg_maxiter=40), compute_covariance=False,
-                   device="cuda") for 5 GN iterations at the default
+                   cg_maxiter=40, device_loop=False), compute_covariance=False,
+                   device="cuda") for 5 GN iterations (the host loop; phase
+                   17 runs the device loop) at the default
                    precisions; sigma0^2, CG counts, iteration walls, host
                    reads per CG call (one per block of 8 masked iterations
                    and one that stops), and the launch counts K1 = steps,
@@ -53,8 +56,9 @@ NCCL group.  Imports nothing of JAX.  Phases:
                    card against the CPU at the block's tie and image axes
   8. unfused ref   a 12-image float64 block and a 24-image 3-camera float32
                    block solved unfused on the card and on the CPU
-  9. unfused main  solve_schur(problem, SchurOptions(cg_maxiter=40),
-                   compute_covariance=False, device="cuda") in float64 for
+  9. unfused main  solve_schur(problem, SchurOptions(cg_maxiter=40,
+                   device_loop=False), compute_covariance=False,
+                   device="cuda") in float64 (the host loop) for
                    3 GN iterations (depth cut from a converged solve);
                    the K4 launch count against 6 * steps + 2 * matvecs
                    (the matvecs CG ran, masked iterations included), and
@@ -77,7 +81,8 @@ NCCL group.  Imports nothing of JAX.  Phases:
                    the kernel's multiple of it; for W
                    and P the largest id span of a chunk beside W
  12. unfused img   solve_schur(problem, SchurOptions(dtype=float32,
-                   obs_order="img", cg_maxiter=40), compute_covariance=False,
+                   obs_order="img", cg_maxiter=40, device_loop=False),
+                   compute_covariance=False,
                    device="cuda") on the bench block for 2 GN iterations:
                    direct tie and image sums, each one launch of the span
                    segment sum (6 * steps + 2 * matvecs) and nothing else,
@@ -151,7 +156,36 @@ NCCL group.  Imports nothing of JAX.  Phases:
                    past the gate on a 300-image block (the mesh estimate:
                    float32 unfused probe solves, K4 only) against its exact
                    stds by phase 15's measures; K4 at a 4-card slice
-                   (float64) and the stds block's stream (float32)
+                   (float64) and the stds block's stream (float32).  The
+                   three solves run the host loop, then the device loop
+                   (each step a replay of a captured graph, the NCCL
+                   collectives in it), held to their host-loop x (float64
+                   rtol=1e-9, atol=1e-7; float32 rtol=3e-5, atol=3e-4), their
+                   launches the warm-up body's plus one body's times the
+                   steps
+ 17. device loop   the cost of one device->host read (a 0-d flag, the
+                   packed records); phase 6's solve under the device loop
+                   (solver/device_loop.py: the step captured as a CUDA
+                   graph, its CG blocks and the step itself under IF nodes):
+                   the same iterations, accept/reject sequence and CG counts,
+                   x within 1e-6 relative (norm) of phase 6's; phase 9's
+                   (float64, K4) within rtol=1e-9, atol=1e-7 of phase 9's;
+                   each with capture seconds, ms a replay against the host
+                   loop's step walls, packed reads, replays after the stop,
+                   no CG host read, launches (warm-up + steps x one body:
+                   K1 1, K2 2 + 40; K4 6 + 2 * 40), the graph pools' bytes
+                   and peak memory; the same solves' eager body on the card
+                   (bitwise equal x); then one uncut float32 solve to
+                   convergence by bench.py's definition (L1 <= 3e-4 u, at
+                   most 60 iterations, 40 CG iterations to 1e-6): the
+                   time to a converged solve, sigma0^2 in (0.8, 1.2)
+ 18. posegraph     solve_posegraph(bench block, n_blocks=4, refine=True):
+                   block walls and iterations (each converged), edges (>= 3),
+                   the merge's host ms, the refine's iterations and driver
+                   (the device loop), its tie coordinates within 1e-5 and
+                   rms within 1e-6 relative of a direct solve; then
+                   cli.main(<phase 13's dataset, copied>, solver="posegraph",
+                   blocks=2): rc 0, the three reports, sigma0^2 in [0.9, 1.1]
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -169,7 +203,9 @@ table has one entry per kernel of phases 4-9, one per probe of phases
 10-11, one for the span segment sum on the solver path (phase 12), K4 on
 the explicit S's pair products and tie IOP sums (phase 14), K1, K2
 and the span segment sum on the estimator's path (phase 15), and K1, K2
-and K4 on the distributed paths (phase 16); `replaces`
+and K4 on the distributed paths (phase 16), and K1, K2 and K4 under the
+device loop (phase 17: launches are one captured body's times the steps
+replayed); `replaces`
 lists the pallas_call sites each stands for.  Phase 13 adds no kernel:
 the dense path's products, solve and inverse are torch.matmul and
 torch.linalg, as the JAX package leaves them to XLA; so are the explicit
@@ -201,7 +237,9 @@ from fish_eye_bundle_adjustment_tpu_torch.ops import (
 from fish_eye_bundle_adjustment_tpu_torch import cli
 from fish_eye_bundle_adjustment_tpu_torch.io.problem import load_problem
 from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import build_band_plan
-from fish_eye_bundle_adjustment_tpu_torch.solver import covariance, dense, explicit, schur
+from fish_eye_bundle_adjustment_tpu_torch.solver import (
+    covariance, dense, device_loop, explicit, schur,
+)
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block, write_block
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
     HBM_BYTES_PER_S, Probe, bound, cuda_ms, line, measure, rel_norm,
@@ -403,9 +441,12 @@ def phase_reference(dev):
 def phase_main_path(p, layout, plan, dev):
     problem = dataclasses.replace(
         p, settings=dataclasses.replace(p.settings, iteration_cap=5))
-    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40)
+    # the host loop: phase 17 runs the same solve under the device loop
+    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40, device_loop=False)
+    records = []
 
     def progress(rec):
+        records.append(rec)
         print(f"[6 main] iter {rec.iteration}: L1(delta)={rec.delta_l1:.6g} "
               f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
               f"wall={rec.elapsed_s * 1e3:.1f} ms"
@@ -477,6 +518,7 @@ def phase_main_path(p, layout, plan, dev):
         raise RuntimeError("[6 main] FAIL: a plain version ran on the main path")
     if k4:
         raise RuntimeError(f"[6 main] FAIL: the fused path ran the chunk prefix {k4} times")
+    res.progress = records
     return counts, res
 
 
@@ -574,11 +616,14 @@ def phase_unfused_reference(dev):
 def phase_unfused_main_path(p, layout, dev):
     problem = dataclasses.replace(
         p, settings=dataclasses.replace(p.settings, iteration_cap=3))
-    opts = schur.SchurOptions(cg_maxiter=40)  # float64, explicit_s=None
+    # float64, explicit_s=None; the host loop (phase 17 runs the device loop)
+    opts = schur.SchurOptions(cg_maxiter=40, device_loop=False)
     if problem.n_img <= opts.explicit_s_max_images:
         raise RuntimeError("[9 unfused] FAIL: the explicit-S gate would be on")
+    records = []
 
     def progress(rec):
+        records.append(rec)
         print(f"[9 unfused] iter {rec.iteration}: L1(delta)={rec.delta_l1:.9g} "
               f"lambda={rec.damping or 0.0:.3g} cg_tol={rec.cg_tol:.3g} "
               f"wall={rec.elapsed_s * 1e3:.1f} ms"
@@ -641,6 +686,7 @@ def phase_unfused_main_path(p, layout, dev):
     print(f"[9 unfused] weighted SSR {c0:.9g} -> {c1:.9g}")
     if not (np.isfinite(c1) and c1 < c0):
         raise RuntimeError("[9 unfused] FAIL: the weighted SSR did not fall")
+    res.progress = records
     return {"chunk_prefix": k4}, res
 
 
@@ -654,6 +700,30 @@ def _read_counts():
     mods = (fusedmv, prefix, streamseg, probes)
     launches = {k: v for mod in mods for k, v in mod.kernel_launches.items()}
     return launches, sum(sum(mod.plain_calls.values()) for mod in mods)
+
+
+def _body_launches(moves):
+    """The kernel launches in device_loop.loop_counts' per_body or warmup
+    moves, by kernel."""
+    return {k: v for mod in ("fusedmv", "prefix", "streamseg", "probes")
+            for k, v in moves.get(mod, {}).items() if v}
+
+
+def _kernels(replayed):
+    """device_loop.loop_counts["replayed"] by kernel (its other keys are
+    K4's widths)."""
+    return {k: v for k, v in replayed.items() if isinstance(k, str)}
+
+
+def _loop_launches(fused, cg, maxiter):
+    """The launches a device-loop solve's replays must run, from its CG
+    counts: per step K1 once and K2 twice (fused) or K4 six times
+    (unfused), and one K2 or two K4 a CG matvec run (schur.cg_matvecs:
+    the IF nodes skip the CG blocks past CG's stop)."""
+    steps, mv = len(cg), sum(schur.cg_matvecs(c, maxiter) for c in cg)
+    if fused:
+        return {"fused_hpp_pass": steps, "fused_schur_apply": 2 * steps + mv}
+    return {"chunk_prefix": 6 * steps + 2 * mv}
 
 
 def _drive(tag, run, want):
@@ -739,7 +809,8 @@ def phase_unfused_img(p, layout, dev):
     """The unfused float32 path at obs_order="img" on the bench block."""
     problem = dataclasses.replace(
         p, settings=dataclasses.replace(p.settings, iteration_cap=2))
-    opts = schur.SchurOptions(dtype=np.float32, obs_order="img", cg_maxiter=40)
+    opts = schur.SchurOptions(dtype=np.float32, obs_order="img", cg_maxiter=40,
+                              device_loop=False)
     if (schur.make_band_plan(p, layout, opts) is not None
             or schur.make_pair_plan(p, layout, opts) is not None):
         raise RuntimeError("[12 unfused img] FAIL: not the matrix-free unfused path")
@@ -1248,13 +1319,14 @@ def _distributed_rank(mesh, p, stds_p, stds_x, stds_sigma02):
     tag = "16 distributed"
     say = print if mesh.index == 0 else (lambda *a, **k: None)
     out = {"backend": dist.get_backend(), "size": mesh.size}
+    # the host loop first (the checks of phases 6 and 9), then the device loop
     runs = (
         ("distributed", dist_schur.solve_schur_distributed, {},
-         schur.SchurOptions(cg_maxiter=40), 3),
+         schur.SchurOptions(cg_maxiter=40, device_loop=False), 3),
         ("sharded", sharded_state.solve_schur_sharded_state, dict(point_mode="sharded"),
-         schur.SchurOptions(cg_maxiter=40), 3),
+         schur.SchurOptions(cg_maxiter=40, device_loop=False), 3),
         ("fused_sharded", fusedshard.solve_schur_fused_sharded, {},
-         schur.SchurOptions(dtype=np.float32, cg_maxiter=40), 5),
+         schur.SchurOptions(dtype=np.float32, cg_maxiter=40, device_loop=False), 5),
     )
     for name, solve, kw, opts, cap in runs:
         problem = dataclasses.replace(
@@ -1298,6 +1370,54 @@ def _distributed_rank(mesh, p, stds_p, stds_x, stds_sigma02):
         if ran != want or plain or cgc["matvecs"] != mv:
             raise RuntimeError(f"[{tag}] FAIL: {name}: launches {ran}, expected {want}, "
                                f"plain {plain}, CG {cgc}")
+
+    # the same solves under the device loop (device_loop=None, the default
+    # at one rank): each GN step one replay of a captured graph, the
+    # collectives inside it.  Over several ranks the default is the host
+    # loop, and device_loop=True raises: NCCL between ranks does not
+    # capture inside an IF node.
+    for name, solve, kw, opts, cap in runs if mesh.size == 1 else ():
+        problem = dataclasses.replace(
+            p, settings=dataclasses.replace(p.settings, iteration_cap=cap))
+        torch.cuda.synchronize()
+        _reset_counts()
+        schur.reset_cg_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        res = solve(problem, mesh, dataclasses.replace(opts, device_loop=None), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = _read_counts()
+        lc = device_loop.loop_counts
+        per, warm = _body_launches(lc["per_body"]), _body_launches(lc["warmup"])
+        replayed = _loop_launches(name == "fused_sharded", res.cg_iterations, opts.cg_maxiter)
+        want = {k: warm.get(k, 0) + n for k, n in replayed.items()}
+        ran = {k: v for k, v in launches.items() if v}
+        out[f"{name} device loop"] = dict(
+            x=res.x, iterations=res.iterations, cg=res.cg_iterations, wall=wall,
+            capture_s=lc["capture_s"], step_ms=lc["loop_s"] / lc["steps"] * 1e3,
+            replays=lc["replays"], steps=lc["steps"], reads=lc["reads"], per_body=per,
+            launches=ran, finite=bool(np.isfinite(res.x).all()))
+        say(f"[{tag}] {name} under the device loop: {res.iterations} iterations "
+            f"({res.stopped_on}), {lc['steps']} steps, cg per step={res.cg_iterations}, wall "
+            f"{wall:.2f} s (capture {lc['capture_s']:.2f} s, "
+            f"chunk loop {lc['loop_s'] * 1e3:.1f} ms: {lc['loop_s'] / lc['steps'] * 1e3:.1f} ms a "
+            f"step, {lc['replays']} replays, {lc['reads']} packed reads); launches {ran} = "
+            f"warm-up {warm} + replays {_kernels(lc['replayed'])} (counted on the "
+            f"card; want {replayed} from the CG counts; {per} captured a body); plain {plain}; "
+            f"collectives captured a body {lc['per_body']['mesh']}")
+        if (ran != want or plain or not lc["graph"]
+                or lc["per_body"]["cg"]["host_reads"] or schur.cg_counts["host_reads"]):
+            raise RuntimeError(f"[{tag}] FAIL: {name} under the device loop: launches {ran}, "
+                               f"expected {want}, plain {plain}, loop {lc}")
+    if mesh.size > 1:
+        try:
+            dist_schur.solve_schur_distributed(p, mesh, schur.SchurOptions(device_loop=True))
+        except ValueError as e:
+            say(f"[{tag}] device_loop=True over {mesh.size} ranks raises: {e}")
+        else:
+            raise RuntimeError(f"[{tag}] FAIL: device_loop=True over {mesh.size} NCCL ranks "
+                               "did not raise")
 
     # what one all-reduce costs a CG matvec: the fused operator's camera
     # outputs (float32) and the distributed matvec's tie sum (float64)
@@ -1470,6 +1590,19 @@ def phase_distributed(p, layout, res6, res9, dev, card):
         if not (r["finite"] and r["iterations"] == ref.iterations and viol <= 1.0):
             raise RuntimeError(f"[{tag}] FAIL: {name} differs from phase "
                                f"{9 if ref is res9 else 6}'s solve")
+    for name, tol in (("distributed", X_TOL_F64), ("sharded", X_TOL_F64),
+                      ("fused_sharded", X_TOL)) if n == 1 else ():
+        r, host = out[f"{name} device loop"], out[name]
+        diff = np.abs(r["x"] - host["x"])
+        viol = float(np.max(diff / (tol["atol"] + tol["rtol"] * np.abs(host["x"]))))
+        print(f"[{tag}] {name} device loop against its host loop: max |dx| {diff.max():.3e} "
+              f"(tolerance use {viol:.3f}), iterations {r['iterations']} vs "
+              f"{host['iterations']}, cg {r['cg']} vs {host['cg']}; capture "
+              f"{r['capture_s']:.2f} s, {r['step_ms']:.1f} ms a step against host-loop "
+              f"step walls {', '.join(f'{w:.1f}' for w in host['walls'][1:])} ms [{card}]")
+        if not (r["finite"] and r["iterations"] == host["iterations"] and viol <= 1.0):
+            raise RuntimeError(f"[{tag}] FAIL: {name} under the device loop differs from "
+                               "its host loop")
     for what, us in out["psum_us"].items():
         print(f"[{tag}] mesh.psum of {what}: {us:.1f} us a call (host wall over 200 "
               f"calls, the card synchronized at the end) [{card}]")
@@ -1520,6 +1653,241 @@ def phase_distributed(p, layout, res6, res9, dev, card):
     return rows, k4
 
 
+def _loop_solve(problem, opts, dev, capture):
+    """solve_schur's device-loop path with `capture` passed on (False: the
+    eager body on the card): (x, iterations, CG counts)."""
+    layout = ParamLayout(problem)
+    kern = schur.SchurKernel(layout, opts)
+    plan = schur.make_band_plan(problem, layout, opts)
+    obs = schur.ObsData.from_problem(problem, layout, plan, dtype=opts.dtype, device=dev,
+                                     obs_order=opts.obs_order)
+    step = schur.schur_step_fn(kern, layout, problem.settings.inner_constraints)
+    cg = []
+    out = device_loop.run_gn_loop_device(step, obs, layout, problem, opts, device=dev,
+                                         chunk=opts.device_chunk, capture=capture,
+                                         cg_iterations=cg)
+    return out[0].cpu().numpy(), out[5], cg
+
+
+def _read_us(dev, n):
+    """Host microseconds of one read of n float32 from an idle card: a
+    plain .cpu(), and the device loop's form (a pinned non-blocking copy,
+    an event, its synchronize)."""
+    t = torch.zeros(n, device=dev)
+    host = torch.empty(n, pin_memory=True)
+    done = torch.cuda.Event()
+
+    def pinned():
+        host.copy_(t, non_blocking=True)
+        done.record()
+        done.synchronize()
+
+    out = {}
+    for name, fn in (("cpu()", lambda: t.cpu()), ("pinned + event", pinned)):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    return out
+
+
+def phase_device_loop(p, layout, res6, res9, dev, card):
+    """The device loop on the bench block: phase 6's and phase 9's solves
+    captured as CUDA graphs, against them; the graph against the eager
+    body; an uncut float32 solve to convergence; the cost of a host read."""
+    tag = "17 device loop"
+    nrec = 2 * schur.SchurOptions().device_chunk + 2
+    for n, what in ((1, "a 0-d flag"), (nrec * device_loop.N_COLS + 3, "the packed records")):
+        us = _read_us(dev, n)
+        print(f"[{tag}] one device->host read of {what} ({n} float32) on an idle card: "
+              + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()) + f" [{card}]")
+    rows = {}
+    cases = (
+        ("fused float32", res6, schur.SchurOptions(dtype=np.float32, cg_maxiter=40), 5,
+         {"fused_hpp_pass": 1, "fused_schur_apply": 2 + 40}),
+        ("unfused float64", res9, schur.SchurOptions(cg_maxiter=40), 3,
+         {"chunk_prefix": 6 + 2 * 40}),
+    )
+    for name, ref, opts, cap, want_per in cases:
+        problem = dataclasses.replace(
+            p, settings=dataclasses.replace(p.settings, iteration_cap=cap))
+        records = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        schur.reset_cg_counts()
+        t0 = time.perf_counter()
+        res = schur.solve_schur(problem, opts, compute_covariance=False, device=dev,
+                                progress_fn=records.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches, plain = _read_counts()
+        lc = dict(device_loop.loop_counts)
+        per, warm = _body_launches(lc["per_body"]), _body_launches(lc["warmup"])
+        steps = lc["steps"]
+        ran = {k: v for k, v in launches.items() if v}
+        replayed = _loop_launches(name.startswith("fused"), res.cg_iterations, opts.cg_maxiter)
+        want = {k: warm.get(k, 0) + n for k, n in replayed.items()}
+        replay_ms = lc["loop_s"] / steps * 1e3
+        ref_walls = [r.elapsed_s * 1e3 for r in ref.progress][1:]
+        blocks = sum(-(-c // 8) for c in res.cg_iterations)
+        print(f"[{tag}] {name}: {res.iterations} iterations ({res.stopped_on}), {steps} steps, "
+              f"cg per step={res.cg_iterations}, wall {wall:.2f} s, peak mem {peak:.2f} GiB "
+              f"[{card}]")
+        print(f"[{tag}] {name}: capture (warm-up body + capture) {lc['capture_s']:.2f} s, "
+              f"graph pools +{lc['capture_reserved_bytes'] / 2**30:.2f} GiB reserved; "
+              f"{replay_ms:.1f} ms a replay (chunk loop {lc['loop_s'] * 1e3:.1f} ms over "
+              f"{steps} steps) against the host loop's step walls "
+              f"{', '.join(f'{w:.1f}' for w in ref_walls)} ms (phase "
+              f"{6 if ref is res6 else 9}, first step left out) [{card}]")
+        print(f"[{tag}] {name}: {lc['reads']} packed reads (ceil(steps / chunk) = "
+              f"{-(-steps // opts.device_chunk)}; ceil(iterations / chunk) + 1 = "
+              f"{-(-res.iterations // opts.device_chunk) + 1}), {lc['replays']} replays issued, "
+              f"{lc['replays'] - steps} of them after the stop (IF node off: no step run); "
+              f"CG host reads {schur.cg_counts['host_reads']}; CG blocks of 8 run "
+              f"{blocks} of {steps * -(-opts.cg_maxiter // 8)} captured")
+        print(f"[{tag}] {name}: launches {ran} = warm-up {warm} + replays "
+              f"{_kernels(lc['replayed'])} (counted on the card; want {replayed} from the CG "
+              f"counts); captured a body {per}, {steps} x that {({k: n * steps for k, n in per.items()})} "
+              f"had every CG block run; plain versions {plain}")
+        same = ([(r.iteration, r.accepted) for r in records]
+                == [(r.iteration, r.accepted) for r in ref.progress])
+        if name.startswith("fused"):
+            rel = float(np.linalg.norm(res.x - ref.x) / np.linalg.norm(ref.x))
+            ok_x = rel <= 1e-6
+            print(f"[{tag}] {name} against phase 6: ||dx|| / ||x|| = {rel:.3e} (limit 1e-6), "
+                  f"max |dx| {np.abs(res.x - ref.x).max():.3e}; accept/reject sequence "
+                  f"{'equal' if same else 'DIFFERS'}; cg {res.cg_iterations} vs "
+                  f"{ref.cg_iterations}")
+            ok_x = ok_x and res.cg_iterations == ref.cg_iterations
+        else:
+            diff = np.abs(res.x - ref.x)
+            viol = float(np.max(diff / (X_TOL_F64["atol"] + X_TOL_F64["rtol"] * np.abs(ref.x))))
+            ok_x = viol <= 1.0
+            print(f"[{tag}] {name} against phase 9: max |dx| {diff.max():.3e} (tolerance use "
+                  f"{viol:.3f}); accept/reject sequence {'equal' if same else 'DIFFERS'}; cg "
+                  f"{res.cg_iterations} vs {ref.cg_iterations}")
+        if not (lc["graph"] and res.iterations == ref.iterations and same and ok_x
+                and np.isfinite(res.x).all() and np.isfinite(res.v).all()):
+            raise RuntimeError(f"[{tag}] FAIL: {name} differs from the host loop's solve")
+        if (per != want_per or ran != want or plain or schur.cg_counts["host_reads"]
+                or lc["per_body"]["cg"]["host_reads"]):
+            raise RuntimeError(f"[{tag}] FAIL: {name}: launches {ran} (want {want}), a body "
+                               f"{per} (want {want_per}), plain {plain}, loop {lc}")
+        for k, n in ran.items():
+            rows[k] = dict(launches=n)
+
+        # the captured graph against the eager body, on the card
+        t0 = time.perf_counter()
+        x_eager, its, cg = _loop_solve(problem, opts, dev, capture=False)
+        eager_s = time.perf_counter() - t0
+        bitwise = np.array_equal(x_eager, res.x)
+        print(f"[{tag}] {name}: the eager body on the card ({eager_s:.2f} s, every CG block's "
+              f"flag read back): {its} iterations, cg {cg}; x "
+              + ("bitwise equal to the graph's" if bitwise else
+                 f"differs from the graph's by {np.abs(x_eager - res.x).max():.3e}"))
+        if not bitwise or cg != res.cg_iterations:
+            raise RuntimeError(f"[{tag}] FAIL: {name}: the graph and the eager body differ")
+
+    # an uncut float32 solve to convergence, by bench.py's definition of it
+    # (bench.py:349-357): the f32 delta floor L1 <= 3e-4 u as the
+    # threshold, 60 iterations at most, 40 CG iterations to cg_tol 1e-6
+    conv = dataclasses.replace(p, settings=dataclasses.replace(
+        p.settings, threshold=3e-4 * layout.u, iteration_cap=60))
+    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40, cg_tol=1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = schur.solve_schur(conv, opts, compute_covariance=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lc = device_loop.loop_counts
+    print(f"[{tag}] time to a converged solve (fused float32, bench.py's convergence: "
+          f"threshold 3e-4 u = {3e-4 * layout.u:.1f}, cap 60, cg_maxiter 40, cg_tol 1e-6): "
+          f"{wall:.2f} s wall (capture {lc['capture_s']:.2f} s, chunk loop {lc['loop_s']:.2f} s, "
+          f"{lc['reads']} packed reads); converged={res.converged} ({res.stopped_on}) after "
+          f"{res.iterations} iterations, {lc['steps']} steps, {sum(res.cg_iterations)} CG "
+          f"iterations; sigma0^2={res.sigma02:.6f} rms={res.rms:.4f}; last L1 "
+          f"{', '.join(f'{d:.4g}' for d in res.delta_history[-4:])} [{card}]")
+    if not (res.converged and np.isfinite(res.x).all() and 0.8 < res.sigma02 < 1.2):
+        raise RuntimeError(f"[{tag}] FAIL: the float32 solve did not converge")
+    return rows
+
+
+def phase_posegraph(p, dev, card):
+    """solve_posegraph on the bench block (4 blocks, the refine), against a
+    direct solve; then the CLI's posegraph on phase 13's dataset."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import posegraph
+
+    tag = "18 posegraph"
+    walls = []
+
+    def timed_block(problem, **kw):
+        t0 = time.perf_counter()
+        r = schur.solve_schur(problem, **kw)
+        torch.cuda.synchronize()
+        walls.append((problem.n_img, time.perf_counter() - t0, r.iterations, r.converged))
+        return r
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg = posegraph.solve_posegraph(p, n_blocks=4, refine=True, block_solver=timed_block)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lc = dict(device_loop.loop_counts)
+    subs = [posegraph.extract_block(p, part) for part in posegraph.partition_images(p, 4)]
+    t0 = time.perf_counter()
+    eop, _, edges = posegraph.merge_blocks(p, subs, pg.block_results)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    ref = pg.refined
+    print(f"[{tag}] solve_posegraph(n_blocks=4, refine=True): wall {wall:.2f} s; blocks "
+          + "; ".join(f"{n} images {s:.2f} s {i} it{'' if c else ' NOT converged'}"
+                      for n, s, i, c in walls)
+          + f"; {len(edges)} edges; merge {merge_ms:.1f} ms (host) [{card}]")
+    print(f"[{tag}] refine: {ref.iterations} iterations ({ref.stopped_on}), driver "
+          f"{'device loop (CUDA graph)' if lc.get('graph') else 'host loop'}, capture "
+          f"{lc.get('capture_s', 0.0):.2f} s, {lc.get('steps')} steps, cg per step "
+          f"{ref.cg_iterations}, GN loop {ref.elapsed_s:.2f} s, sigma0^2 {ref.sigma02:.9f}, "
+          f"stds {ref.std_method} [{card}]")
+    t0 = time.perf_counter()
+    direct = schur.solve_schur(p, compute_covariance=False, device=dev)
+    direct_s = time.perf_counter() - t0
+    ties = np.abs(ref.x[ref.layout.tie_offset:] - direct.x[direct.layout.tie_offset:])
+    print(f"[{tag}] direct solve (float64, device loop): {direct.iterations} iterations "
+          f"({direct.stopped_on}) in {direct_s:.2f} s; the refine's tie coordinates within "
+          f"{ties.max():.3e} of it (limit 1e-5), rms {ref.rms:.9f} vs {direct.rms:.9f} [{card}]")
+    if not (all(c for _, _, _, c in walls) and len(edges) >= 3 and ref.converged
+            and np.array_equal(eop, pg.eop) and lc.get("graph") and ties.max() <= 1e-5
+            and abs(ref.rms - direct.rms) <= 1e-6 * direct.rms
+            and ref.std is not None and np.isfinite(ref.std).all()):
+        raise RuntimeError(f"[{tag}] FAIL: the pose graph or its refine")
+
+    # the CLI's posegraph on a copy of phase 13's dataset
+    src = Path("chiprun_out") / "smoke_dense_cli" / "ds"
+    folder = Path("chiprun_out") / "smoke_posegraph_cli" / "ds"
+    shutil.rmtree(folder.parent, ignore_errors=True)
+    folder.mkdir(parents=True)
+    for f in src.iterdir():
+        if f.suffix not in (".out", ".rsd", ".par"):
+            shutil.copy(f, folder / f.name)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(folder, plot=False, solver="posegraph", blocks=2)
+    cli_s = time.perf_counter() - t0
+    written = [folder / f"{folder.name}.{ext}" for ext in ("out", "rsd", "par")]
+    found = (re.search(r"A-Posteriori\.+([-\d.eE+]+)", written[0].read_text())
+             if written[0].exists() else None)
+    s02 = float(found.group(1)) if found else float("nan")
+    print(f"[{tag}] cli.main({folder}, solver='posegraph', blocks=2): rc {rc} in {cli_s:.2f} s, "
+          f"sigma0^2 {s02:.6f}, wrote {[w.name for w in written if w.exists()]} [{card}]")
+    if rc != 0 or not all(w.exists() for w in written) or not 0.9 <= s02 <= 1.1:
+        raise RuntimeError(f"[{tag}] FAIL: the posegraph CLI:\n{out.getvalue()[-2000:]}")
+
+
 def main():
     card = phase_environment()
     dev = torch.device("cuda")
@@ -1551,6 +1919,12 @@ def main():
     t0 = time.perf_counter()
     shard_rows, shard_k4 = phase_distributed(p, layout, main_res, res9, dev, card)
     print(f"[16 distributed] phase 16 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loop_rows = phase_device_loop(p, layout, main_res, res9, dev, card)
+    print(f"[17 device loop] phase 17 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_posegraph(p, dev, card)
+    print(f"[18 posegraph] phase 18 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);
@@ -1615,6 +1989,19 @@ def main():
             replaces=[REPLACES["chunk_prefix"]], launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # K1, K2 (the fused float32 solve) and K4 (the unfused float64 one)
+    # under the device loop (phase 17): the launches of its solve, the
+    # warm-up body's and those the replays ran (counted on the card); times
+    # and errors of phases 4 and 7, the same kernels at the same block's
+    # shapes
+    for name in ("fused_hpp_pass", "fused_schur_apply", "chunk_prefix"):
+        t = timings[name if name in timings else f"{name}/matvec_bf16"]
+        table.append(dict(
+            name=f"{name}/device_loop", route="cuda", source=SOURCES[name],
+            replaces=[REPLACES[name]], launches=loop_rows[name]["launches"],
+            max_abs_err=max(errs[name]), ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
         ))
     for probe, r in measured:
         table.append(dict(

@@ -19,8 +19,10 @@ camera system up to 600 images, the stds of solver/covariance.py), and
 parallel/ over `--devices` ranks (default: every visible card): started
 plainly the CLI spawns them, rank r on cuda:r over NCCL (or, with --cpu,
 gloo ranks on the CPU); started under torchrun (WORLD_SIZE set) it is one
-of them.  Rank 0 prints and writes the reports.  `posegraph` waits for
-its ROADMAP.md item and raises NotImplementedError naming it.
+of them.  Rank 0 prints and writes the reports.  `posegraph` partitions
+the images into `--blocks` blocks, solves each (one worker thread per
+card), merges them by a similarity pose graph and refines the merged
+estimate with the Schur solver (parallel/posegraph.py).
 """
 
 from __future__ import annotations
@@ -34,10 +36,6 @@ from typing import Optional
 
 REQUIRED_EXTS = (".pho", ".ext", ".cnt", ".int")
 
-# What each solver outside the port so far waits for (ROADMAP.md Queue 1).
-_NOT_PORTED = {
-    "posegraph": "parallel/posegraph.py (ROADMAP.md Queue 1, item 9)",
-}
 SCALE_MODES = ("distributed", "sharded", "fused_sharded")
 
 
@@ -130,10 +128,13 @@ def _solve(problem, solver: str, checkpoint: Optional[str] = None,
         )
     if solver in SCALE_MODES:
         return _solve_scale(problem, solver, checkpoint, devices, keep_history, device)
-    if solver in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--solver {solver}: needs {_NOT_PORTED[solver]}, not ported yet"
-        )
+    if solver == "posegraph":
+        from fish_eye_bundle_adjustment_tpu_torch.parallel.posegraph import solve_posegraph
+
+        pg = solve_posegraph(problem, n_blocks=blocks, refine=True, device=device)
+        if pg.refined is None:
+            raise RuntimeError("pose-graph refine produced no global result")
+        return pg.refined
     raise ValueError(f"unknown solver {solver!r}")
 
 
@@ -258,14 +259,14 @@ def _build_parser() -> argparse.ArgumentParser:
         default="auto",
         help="dense parity solver, Schur solver, or size-based auto (dense at "
              "u <= 3000, schur above); distributed, sharded and fused_sharded run "
-             "over --devices ranks; posegraph is not ported yet and fails naming "
-             "what it needs",
+             "over --devices ranks; posegraph solves --blocks image blocks and "
+             "merges them",
     )
     ap.add_argument("--devices", type=int,
                     help="ranks of --solver distributed/sharded/fused_sharded (default: "
                          "every visible CUDA card; with --cpu, 1)")
     ap.add_argument("--blocks", type=int, default=4,
-                    help="number of image partitions for --solver posegraph (not ported yet)")
+                    help="number of image partitions for --solver posegraph")
     ap.add_argument("--out-dir", help="write outputs here instead of the dataset folder")
     ap.add_argument("--checkpoint", help="solver checkpoint file (schur solver: resume if present)")
     ap.add_argument("--cpu", action="store_true",

@@ -39,6 +39,8 @@ does, and ``x / 2``, ``1 / W`` give the same bits as ``0.5 * x``,
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 MODEL_IDS = {
@@ -60,6 +62,15 @@ _R_EPS = 1e-12
 # peak instead of 1.4 GiB (H100; profile_torch_step.py, PERF.md).  Larger
 # streams go in chunks of 2^21 rows.
 JACOBIAN_CHUNK = 1 << 21
+
+# torch.func's forward mode is not thread-safe: jvp decides whether to open
+# a dual level from a process-global count (JVP_NESTING in
+# torch/_functorch/eager_transforms.py), so a second thread inside jacfwd
+# opens none, and its tangents vanish when the first thread's level closes
+# (zero Jacobian columns on the card; a RuntimeError naming the level at
+# times).  Solves in threads (the pose graph's block solves, a card each)
+# take this lock for their Jacobian passes.
+_FORWARD_MODE = threading.Lock()
 
 
 def rotation_matrix(w, p, k):
@@ -175,9 +186,10 @@ def batched_jacobian_blocks(eop, iop, xyz, obs_xy, y_dir, model_id: int, nk: int
     (n, 2), J_eop (n, 2, 6), J_iop (n, 2, 3+nk+2), J_pt (n, 2, 3).
     Chunked by JACOBIAN_CHUNK rows to bound forward-mode memory."""
     fn = lambda e, i, x, oxy, yd: obs_jacobian_blocks(e, i, x, oxy, yd, model_id, nk)
-    return torch.func.vmap(
-        fn, in_dims=_in_dims(iop, y_dir), chunk_size=JACOBIAN_CHUNK
-    )(eop, iop, xyz, obs_xy, y_dir)
+    with _FORWARD_MODE:
+        return torch.func.vmap(
+            fn, in_dims=_in_dims(iop, y_dir), chunk_size=JACOBIAN_CHUNK
+        )(eop, iop, xyz, obs_xy, y_dir)
 
 
 def batched_residuals(eop, iop, xyz, obs_xy, y_dir, model_id: int, nk: int):

@@ -80,8 +80,13 @@ _SIGNATURES = {
     "scatter_partials_f32": ([_P] * 2 + [_I] * 5 + [_P, _P], _I),
     # partials | n_chunks width | out stream
     "scatter_reduce_f32": ([_P, _I, _I, _P, _P], _I),
+    "graphcond_abi_version": ([], _I),
+    # stream pred child capture_mode
+    "graphcond_begin_if": ([_P, _P, _P, _I], _I),
+    "graphcond_end": ([_P], _I),
 }
-_ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2}
+_ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2,
+        "graphcond": 1}
 
 
 def _nvcc() -> str:

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.ops.bandplan import BandPlan
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import count_launch
 
 # Launch counts: the wrappers add one where they launch a kernel
 # (`kernel_launches`) or run the plain version on the CPU (`plain_calls`).
@@ -465,7 +466,7 @@ def fused_hpp_pass(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
         _ptr(hs), _ptr(de_part), _ptr(di_part), _ptr(de_terms), _ptr(de), _ptr(di), stream,
     )
     _build.check(code, "fused_hpp_pass")
-    kernel_launches["fused_hpp_pass"] += 1
+    count_launch(kernel_launches, "fused_hpp_pass", dev)
     return hs, de, di
 
 
@@ -523,7 +524,7 @@ def fused_schur_apply(band: BandArrays, acam_t, apt_t, hpi_t, ne: int, ni: int,
         stream,
     )
     _build.check(code, "fused_schur_apply")
-    kernel_launches["fused_schur_apply"] += 1
+    count_launch(kernel_launches, "fused_schur_apply", dev)
     if with_precond:
         return out_pose, out_iop, out_y, p21, i55
     return out_pose, out_iop, out_y

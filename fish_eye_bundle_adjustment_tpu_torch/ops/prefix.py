@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import count_launch
+
 CHUNK = 4096
 
 # Launch counts: the wrapper adds one where it launches the kernel
@@ -83,8 +85,8 @@ def chunk_prefix_kernel(vals):
         vals.data_ptr(), out.data_ptr(), n // CHUNK, d, stream
     )
     _build.check(code, "chunk_prefix")
-    kernel_launches["chunk_prefix"] += 1
-    kernel_launches_by_width[d] = kernel_launches_by_width.get(d, 0) + 1
+    count_launch(kernel_launches, "chunk_prefix", vals.device)
+    count_launch(kernel_launches_by_width, d, vals.device)
     return out, out[CHUNK - 1 :: CHUNK]
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.ops import segment, streamseg
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import count_launch
 
 # Launch counts: the wrappers add one where they launch their kernel
 # (`kernel_launches`) or run the plain version on the CPU (`plain_calls`).
@@ -123,7 +124,7 @@ def gather_rows_kernel(idx, tab, window=None):
         out.data_ptr(), torch.cuda.current_stream(tab.device).cuda_stream,
     )
     _build.check(code, "gather_rows")
-    kernel_launches["gather_rows"] += 1
+    count_launch(kernel_launches, "gather_rows", tab.device)
     return out
 
 
@@ -171,7 +172,7 @@ def gather_contract_kernel(idx, m, tab):
         torch.cuda.current_stream(m.device).cuda_stream,
     )
     _build.check(code, "gather_contract")
-    kernel_launches["gather_contract"] += 1
+    count_launch(kernel_launches, "gather_contract", m.device)
     return out
 
 
@@ -233,7 +234,7 @@ def scatter_rows_kernel(idx, vals, n_tab, chunk, round_bf16=False, partials=Fals
     code = lib.scatter_partials_f32(idx.data_ptr(), vals.data_ptr(), n, n_tab, c, chunk,
                                     int(round_bf16), parts.data_ptr(), stream)
     _build.check(code, "scatter_rows (partials)")
-    kernel_launches["scatter_rows"] += 1
+    count_launch(kernel_launches, "scatter_rows", idx.device)
     if partials:
         return parts
     out = torch.empty((n_tab, c), dtype=vals.dtype, device=vals.device)

@@ -34,6 +34,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import count_launch
+
 # Launch counts: the wrappers add one where they launch the kernel
 # (`kernel_launches`) or run the plain version on the CPU (`plain_calls`).
 kernel_launches = {"span_segment_sum": 0}
@@ -246,7 +248,7 @@ def span_segment_sum(vals, ids, r0, r1, s0, out) -> None:
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     _build.check(code, "span_segment_sum")
-    kernel_launches["span_segment_sum"] += 1
+    count_launch(kernel_launches, "span_segment_sum", vals.device)
 
 
 def streaming_segment_sum_t_kernel(vals_t, plan: GroupedSegPlan):

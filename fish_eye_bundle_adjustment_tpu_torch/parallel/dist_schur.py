@@ -11,8 +11,9 @@ PyTorch port of fish_eye_bundle_adjustment_tpu/parallel/dist_schur.py.
   stream is followed by an all-reduce over the ranks (the kernel's
   reduce_fn), the only collectives of the step;
 - the CG runs in lockstep on every rank on equal replicated iterates, and
-  the host loop's decisions are taken on all-reduced values, so every
-  rank takes the same branch.
+  the GN loop's decisions are taken on all-reduced values, so every rank
+  takes the same branch: the host loop's on the host, the device loop's
+  on the device (its one packed read a chunk is equal on every rank).
 
 Each rank calls solve_schur_distributed with the same problem and its
 Mesh (parallel/mesh.py) and returns the same result: the residual rows
@@ -35,8 +36,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.schur import (
     SchurKernel,
     SchurOptions,
     _finalize,
-    _not_ported,
-    run_gn_loop,
+    drive,
     schur_step_fn,
     shard_rows,
     unpermute_v,
@@ -64,13 +64,6 @@ def gather_v(mesh: Mesh, v_local, n_obs: int):
                            for r in range(mesh.size)])
 
 
-def check_options(opts: SchurOptions) -> None:
-    """The distributed solvers run the host loop; the device loop waits
-    for its ROADMAP item as solve_schur's does."""
-    if opts.device_loop:
-        raise _not_ported("device_loop", "device_loop=True")
-
-
 def make_distributed_step(problem: BAProblem, mesh: Mesh,
                           options: Optional[SchurOptions] = None):
     """Build (step_fn, obs, layout, order) for this rank.  step_fn(x, obs,
@@ -91,25 +84,21 @@ def make_distributed_step(problem: BAProblem, mesh: Mesh,
 
 def run_distributed(problem, mesh, opts, step, obs, layout, order, keep_history,
                     x0, progress_fn, checkpoint_path, checkpoint_every,
-                    compute_covariance, v_rows=None) -> DenseResult:
-    """The host loop over a distributed step, then the result every rank
-    returns: the residual rows gathered and unpermuted, the stds (with
-    the mesh) when asked.  Progress and checkpoints are rank 0's."""
+                    compute_covariance, v_rows=None, n_pad=None) -> DenseResult:
+    """The GN loop over a distributed step -- at one rank the device loop
+    unless keep_history or device_loop=False, the JAX package's rule; over
+    several ranks the host loop (schur.use_device_loop) -- then the
+    result every rank returns: the residual rows gathered and unpermuted,
+    the stds (with the mesh) when asked.  Progress and checkpoints are
+    rank 0's.  `n_pad` is the rank's residual rows when `obs` has no W."""
     writer = mesh.index == 0
-    cg_iterations = []
-
-    def counted(x, o, tol, lam):
-        out = step(x, o, tol, lam)
-        cg_iterations.append(out[4])
-        return out
-
     (x, history, delta_history, v_local, stats, count, converged,
-     elapsed, stopped_on) = run_gn_loop(
-        counted, obs, layout, problem, opts,
-        keep_history=keep_history, x0=x0,
-        progress_fn=progress_fn if writer else None,
+     elapsed, stopped_on), cg_iterations = drive(
+        step, obs, layout, problem, opts, keep_history,
+        writes_checkpoints=writer, n_pad=n_pad, mesh_counts=mesh.counts, ranks=mesh.size,
+        x0=x0, progress_fn=progress_fn if writer else None,
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-        device=mesh.device, writes_checkpoints=writer,
+        device=mesh.device,
     )
     v_np = v_rows(v_local) if v_rows else unpermute_v(
         torch.as_tensor(gather_v(mesh, v_local, problem.n_obs)), order, problem.n_obs)
@@ -118,8 +107,7 @@ def run_distributed(problem, mesh, opts, step, obs, layout, order, keep_history,
         stats.double().cpu().numpy(), count, converged, elapsed,
         keep_history, stopped_on,
     )
-    result.cg_iterations = (torch.stack(cg_iterations).tolist()
-                            if cg_iterations else [])
+    result.cg_iterations = cg_iterations
     if compute_covariance:
         # the exact block covariance below the dense-S gate (each rank
         # alike), the Hutchinson estimate's probe solves over the mesh past it
@@ -148,14 +136,13 @@ def solve_schur_distributed(
     """The distributed counterpart of solve_schur: same conventions and,
     by construction, the same arithmetic up to the order of the sums.
     Every rank of `mesh` (default: make_mesh()) calls it and gets the same
-    result.  The host loop drives it (device_loop=True raises, as in
-    solve_schur).
+    result.  The device loop drives it by default at one rank, the host
+    loop over several (run_distributed).
 
     `compute_covariance` defaults off, as in the JAX package: past the
     dense-S gate the stds take 3k + n_probe solves (over the mesh here);
     the CLI turns it on when it writes a report."""
     opts = options or SchurOptions()
-    check_options(opts)
     mesh = mesh if mesh is not None else make_mesh()
     step, obs, layout, order = make_distributed_step(problem, mesh, opts)
     return run_distributed(problem, mesh, opts, step, obs, layout, order, keep_history,

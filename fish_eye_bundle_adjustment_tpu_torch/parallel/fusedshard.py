@@ -41,7 +41,7 @@ from fish_eye_bundle_adjustment_tpu_torch.ops.fusedmv import (
     fused_hpp_pass,
     fused_schur_apply,
 )
-from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import check_options, run_distributed
+from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import run_distributed
 from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import Mesh, make_mesh
 from fish_eye_bundle_adjustment_tpu_torch.solver.constraints import validate_inner_constraints
 from fish_eye_bundle_adjustment_tpu_torch.solver.dense import DenseResult
@@ -56,6 +56,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.schur import (
     _stable_sum,
     fold_residuals,
     fold_streams,
+    inv_blocks,
     make_projection_builder,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
@@ -238,7 +239,7 @@ def make_fused_sharded_step(problem: BAProblem, mesh: Mesh,
             if lam_t is not None:
                 B = B + lam_t * dcc[off : off + B.shape[0] * nb].reshape(-1, nb)[..., None] * eye
             off += B.shape[0] * nb
-            Ms.append((kind, torch.linalg.inv(B + 1e-300 * eye)))
+            Ms.append((kind, inv_blocks(B + 1e-300 * eye)))
 
         def precond(vc):
             out = []
@@ -306,7 +307,6 @@ def solve_schur_fused_sharded(
     """The distributed solve through the fused banded kernels (the result
     contract of solve_schur_distributed)."""
     opts = options or SchurOptions(dtype=np.float32)
-    check_options(opts)
     mesh = mesh if mesh is not None else make_mesh()
     step, data, layout, sp = make_fused_sharded_step(problem, mesh, opts)
 
@@ -317,4 +317,4 @@ def solve_schur_fused_sharded(
 
     return run_distributed(problem, mesh, opts, step, data, layout, None, keep_history,
                            x0, progress_fn, checkpoint_path, checkpoint_every,
-                           compute_covariance, v_rows=v_rows)
+                           compute_covariance, v_rows=v_rows, n_pad=data.obs.W.shape[0])

@@ -191,17 +191,21 @@ def _rank_main(rank, n, coordinator, device, fn, args, out_dir, timeout_s):
         raise SystemExit(1)
 
 
-def run_ranks(fn, n: int, device="cpu", args=(), timeout_s: float = DEFAULT_TIMEOUT_S,
+def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEOUT_S,
               collective_timeout_s: Optional[float] = None):
-    """Run fn(mesh, *args) on `n` ranks, each a spawned process: on the CPU
-    over gloo (device "cpu"), or rank r on cuda:r over NCCL (device
-    "cuda").  `fn` must be a module-level function, and what it returns
-    picklable.  Returns rank 0's result.  A failing rank fails the run
-    with its traceback; past `timeout_s` every rank is stopped and the run
-    raises TimeoutError.  Each rank runs torch on one thread."""
+    """Run fn(mesh, *args) on `n` ranks, each a spawned process: rank r on
+    cuda:r over NCCL (device None or "cuda"; without a card it raises), or
+    on the CPU over gloo when asked (device "cpu").  `fn` must be a
+    module-level function, and what it returns picklable.  Returns rank
+    0's result.  A failing rank fails the run with its traceback; past
+    `timeout_s` every rank is stopped and the run raises TimeoutError.
+    Each rank runs torch on one thread."""
     import multiprocessing as mp
 
-    if str(device) != "cpu":
+    from fish_eye_bundle_adjustment_tpu_torch.solver.dense import resolve_device
+
+    device = resolve_device(device, "run_ranks")
+    if device.type != "cpu":
         have = torch.cuda.device_count()
         if n > have:
             raise ValueError(f"run_ranks: {n} ranks need {n} CUDA devices; {have} visible")

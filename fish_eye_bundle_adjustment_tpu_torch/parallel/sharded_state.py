@@ -20,7 +20,7 @@ point_mode="sharded" shards the point state too (parallel/tieshard.py):
 Hpp^-1 and every per-tie sum live on each rank's tie span, boundary ties
 completed by an O(N)-word all-reduce.
 
-The unknown vector stays replicated between steps, so run_gn_loop and
+The unknown vector stays replicated between steps, so the GN loops and
 checkpoints are those of the other solvers.  Free-network inner
 constraints run projected; each rank holds its own images' rows of G.
 """
@@ -35,7 +35,6 @@ import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.io.problem import BAProblem
 from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import (
-    check_options,
     run_distributed,
     shard_obs,
 )
@@ -56,6 +55,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.schur import (
     _inv3x3,
     _pcg,
     _stable_sum,
+    inv_blocks,
     shard_rows,
     torch_dtype,
 )
@@ -187,13 +187,13 @@ def make_sharded_camera_step(problem: BAProblem, mesh: Mesh,
         eye = torch.eye(ne, dtype=tdt, device=dev)
         if lam_t is not None:
             pose_blocks = pose_blocks + lam_t * dcc_pose[..., None] * eye
-        pose_inv = torch.linalg.inv(pose_blocks + torch.where(empty, eye, 1e-300 * eye))
+        pose_inv = inv_blocks(pose_blocks + torch.where(empty, eye, 1e-300 * eye))
         if ni:
             iop_blocks = _expand_sym(iop_reduce(fac.iop_precond_sym()), ni)
             eye_i = torch.eye(ni, dtype=tdt, device=dev)
             if lam_t is not None:
                 iop_blocks = iop_blocks + lam_t * dcc_iop[..., None] * eye_i
-            iop_inv = torch.linalg.inv(iop_blocks + 1e-300 * eye_i)
+            iop_inv = inv_blocks(iop_blocks + 1e-300 * eye_i)
         else:
             iop_inv = q.new_zeros((n_cam, 0, 0))
 
@@ -212,7 +212,7 @@ def make_sharded_camera_step(problem: BAProblem, mesh: Mesh,
                 Gp = torch.cat([Gp, Gp.new_zeros((n_img_pad - n_img, ne, G.shape[1]))])
             Gp_loc = Gp[d_idx * m_loc : (d_idx + 1) * m_loc]
             Gi = G[layout.eop_size :]
-            GtG_inv = torch.linalg.inv(G.T @ G)
+            GtG_inv = inv_blocks(G.T @ G)
 
             def project(v):
                 vp, vi = v
@@ -305,7 +305,6 @@ def solve_schur_sharded_state(
     contract of solve_schur_distributed, stds included).
     point_mode="sharded" shards the point state too."""
     opts = options or SchurOptions()
-    check_options(opts)
     mesh = mesh if mesh is not None else make_mesh()
     step, obs, layout, order = make_sharded_camera_step(problem, mesh, opts,
                                                         point_mode=point_mode)

@@ -44,14 +44,19 @@ onto null(G^T).  ``compute_covariance=True`` (the default) adds every
 unknown's std from solver/covariance.py: the exact block covariance up to
 1000 images, the Hutchinson estimate past them.
 
-The host Gauss-Newton loop drives every path with the deferred
-Levenberg-Marquardt control; the device loop (``device_loop=True``)
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+Two drivers run the deferred Levenberg-Marquardt control, as in the JAX
+package: the host loop (`run_gn_loop`, one host read a step) and the
+device loop (solver/device_loop.py: on a card the step is one replay of a
+CUDA graph and the host reads once per chunk of steps).  solve_schur
+takes the device loop where the JAX package does: with no explicit dense
+S and no kept history (``device_loop=None``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -86,6 +91,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.explicit import (
     dense_precond,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as ckpt_mod
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import run_if
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     IterationRecord,
@@ -93,17 +99,6 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     Stopwatch,
     check_divergence,
 )
-
-# What each configuration outside the port so far waits for (ROADMAP.md
-# Queue 1).
-_NOT_PORTED = {
-    "device_loop": "solver/device_loop.py (ROADMAP.md Queue 1, item 7)",
-}
-
-
-def _not_ported(what: str, why: str) -> NotImplementedError:
-    return NotImplementedError(f"{why}: needs {_NOT_PORTED[what]}, not ported yet")
-
 
 # rows of the operator's IOP outputs (out_iop, di): one camera's IOPs fit
 # when nk <= 3 with every IOP estimated
@@ -173,6 +168,14 @@ def _inv3x3(M):
         torch.stack([G, H, I], dim=-1),
     ]
     return torch.stack(rows, dim=-2) * inv_det[..., None, None]
+
+
+def inv_blocks(A):
+    """torch.linalg.inv without its error check, which reads the device's
+    info flags back to the host (a CUDA graph cannot capture that read).
+    The same LU and the same numbers: a singular block gives inf/nan, as
+    the JAX package's jnp.linalg.inv does."""
+    return torch.linalg.inv_ex(A).inverse
 
 
 def shard_rows(n: int, n_shards: int):
@@ -396,8 +399,7 @@ class ObsData:
 class SchurOptions:
     """The JAX package's SchurOptions, same fields and defaults; see
     fish_eye_bundle_adjustment_tpu/solver/schur.py for the reasons behind
-    each.  The device loop's options are kept so configurations carry
-    over; device_loop=True raises NotImplementedError in solve_schur."""
+    each."""
 
     cg_tol: float = 1e-10  # relative residual tolerance for the inner CG
     cg_maxiter: int = 500
@@ -438,8 +440,9 @@ class SchurOptions:
     fused_precision_mv: Optional[str] = None
     band_M: int = 128  # tie ranks per group
     band_max_W: int = 2048  # reject plans with wider image bands
-    # on-device GN driver (solver/device_loop.py, not ported); None -> the
-    # host loop
+    # on-device GN driver (solver/device_loop.py): None -> on where it
+    # applies (no explicit dense S, no kept history); device_chunk steps per
+    # host read
     device_loop: Optional[bool] = None
     device_chunk: int = 16
 
@@ -981,7 +984,7 @@ class SchurFactors:
                 d = self.dcc[off : off + nrow * nb].reshape(nrow, nb)
                 B = B + lam * d[..., None] * eye
             off += nrow * nb
-            Ms.append((kind, torch.linalg.inv(B + eye_reg * eye)))
+            Ms.append((kind, inv_blocks(B + eye_reg * eye)))
         return self._precond_apply_from(Ms)
 
     def rhs_and_precond(self, lam=None):
@@ -1016,10 +1019,26 @@ _CG_UNROLL = 8  # masked iterations per host check (see _pcg)
 # the host, and matvecs run (masked iterations included).
 cg_counts = {"calls": 0, "host_reads": 0, "matvecs": 0}
 
+_cg_mode = threading.local()
+
 
 def reset_cg_counts():
     for key in cg_counts:
         cg_counts[key] = 0
+
+
+@contextlib.contextmanager
+def device_cg():
+    """_pcg with no host read, in this thread (the device loop): each
+    block of _CG_UNROLL masked iterations runs under the flag the host loop
+    would read (utils/cudagraph.run_if: an IF node of a captured graph, or
+    a read of host memory on the CPU)."""
+    prev = getattr(_cg_mode, "device", False)
+    _cg_mode.device = True
+    try:
+        yield
+    finally:
+        _cg_mode.device = prev
 
 
 def _tmap(fn, *vs):
@@ -1040,11 +1059,13 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
     iteration an exact no-op.  The count of iterations taken stays on the
     device.  At maxiter <= 2 * _CG_UNROLL the iterations are all issued
     with no host read; otherwise one flag (i < maxiter, r'r > tol^2 b'b,
-    guard not tripped) is read back before each block of _CG_UNROLL.  The
-    semantics are the guarded loop's: the same updates while active, the
-    same x, count and stop.  The vectors are tensors, or tuples of tensors
-    with `dot` their inner product (the sharded camera state of
-    parallel/sharded_state.py: a rank's pose slice and the replicated
+    guard not tripped) decides each block of _CG_UNROLL: read back to the
+    host before the block, or, under device_cg(), the condition of the
+    block on the device.  The semantics are the guarded loop's: the same
+    updates while active, the same x, count and stop.  The vectors are
+    tensors, or tuples of tensors with `dot` their inner product (the
+    sharded camera state of parallel/sharded_state.py: a rank's pose
+    slice and the replicated
     IOPs, its dot an all-reduce); the flag read back must then be equal on
     every rank, which it is when `dot` is.  Curvature guard: on a PD system p'Ap > 0 in
     exact arithmetic, but f32 rounding near the CG noise floor of an
@@ -1088,6 +1109,22 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
     if maxiter <= 2 * _CG_UNROLL:
         for _ in range(maxiter):
             state = masked_iter(state)
+    elif getattr(_cg_mode, "device", False):
+        # the state in tensors of its own, which each block updates in place
+        # (a block that does not run leaves them as they are)
+        live = [_tmap(torch.clone, t) for t in state]
+
+        def block():
+            out = tuple(live)
+            for _ in range(_CG_UNROLL):
+                out = masked_iter(out)
+            for dst, src in zip(live, out):
+                _tmap(lambda d, v: d.copy_(v), dst, src)
+
+        for _ in range(-(-maxiter // _CG_UNROLL)):
+            i, _, r, *_, ok = live
+            run_if((i < maxiter) & (dot(r, r) > tol2) & ok, block)
+        state = tuple(live)
     else:
         def go_on(state):
             i, _, r, *_, ok = state
@@ -1101,6 +1138,16 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
     return x, i, torch.sqrt(dot(r, r) / bnorm2)
 
 
+def cg_matvecs(iterations: int, maxiter: int) -> int:
+    """The matvecs _pcg runs for a solve that took `iterations`, on the
+    device or the host alike: all maxiter at maxiter <= 2 * _CG_UNROLL,
+    else every block of _CG_UNROLL begun while CG was active.  (A block
+    whose first iteration trips the curvature guard runs one block more.)"""
+    if maxiter <= 2 * _CG_UNROLL:
+        return maxiter
+    return _CG_UNROLL * -(-iterations // _CG_UNROLL)
+
+
 def make_projection_builder(layout, nc, use_ic: bool):
     """Null(G^T) projector factory for free-network CG."""
 
@@ -1108,7 +1155,7 @@ def make_projection_builder(layout, nc, use_ic: bool):
         if not use_ic:
             return lambda v: v
         G = build_G(layout, q)[:nc]  # G is zero on tie rows
-        GtG_inv = torch.linalg.inv(G.T @ G)
+        GtG_inv = inv_blocks(G.T @ G)
 
         def project(v):
             return v - G @ (GtG_inv @ (G.T @ v))
@@ -1457,6 +1504,57 @@ def make_pair_plan(problem, layout, opts: SchurOptions, device="cpu"):
     )
 
 
+def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None, ranks: int = 1,
+                    device="cpu") -> bool:
+    """Whether the device loop drives a solve: at device_loop=None the JAX
+    package's rule (no explicit dense S, no kept history) on one rank,
+    False the host loop.  device_loop=True where the device loop does not
+    apply raises, where the JAX package runs the host loop silently.  Over
+    several ranks the device loop runs only when asked and on the CPU (its
+    eager body over gloo): NCCL collectives between ranks do not capture
+    inside a CUDA graph's IF node, so the card runs the host loop there."""
+    if opts.device_loop is False:
+        return False
+    why = ("the explicit dense S (a PairPlan) runs the host loop" if pairs is not None
+           else "keep_history runs the host loop" if keep_history
+           else None if ranks == 1 or (opts.device_loop and torch.device(device).type == "cpu")
+           else f"{ranks} ranks run the host loop (NCCL collectives between ranks do not "
+                "capture inside a CUDA graph's IF node)")
+    if why is None:
+        return True
+    if opts.device_loop:
+        raise ValueError(f"device_loop=True: {why}; pass device_loop=None or False")
+    return False
+
+
+def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
+          writes_checkpoints=True, n_pad=None, mesh_counts=None, ranks=1, **kw):
+    """Run the GN loop use_device_loop picks over `raw_step`: (the loop's
+    9-tuple, the CG iterations of every step as ints).  `kw` are the
+    loops' common keywords (x0, progress_fn, checkpoint_path,
+    checkpoint_every, device); `n_pad` and `mesh_counts` go to the device
+    loop, `ranks` (the mesh's size) to use_device_loop."""
+    if use_device_loop(opts, keep_history, pairs, ranks, kw.get("device", "cpu")):
+        from fish_eye_bundle_adjustment_tpu_torch.solver.device_loop import run_gn_loop_device
+
+        cg_iterations = []
+        out = run_gn_loop_device(
+            raw_step, obs, layout, problem, opts, chunk=opts.device_chunk, n_pad=n_pad,
+            writes_checkpoints=writes_checkpoints, cg_iterations=cg_iterations,
+            mesh_counts=mesh_counts, **kw)
+        return out, cg_iterations
+    counted = []  # 0-d device counts, read once at the end
+
+    def step(x, o, tol, lam):
+        out = raw_step(x, o, tol, lam)
+        counted.append(out[4])
+        return out
+
+    out = run_gn_loop(step, obs, layout, problem, opts, keep_history=keep_history,
+                      writes_checkpoints=writes_checkpoints, **kw)
+    return out, torch.stack(counted).tolist() if counted else []
+
+
 def solve_schur(
     problem: BAProblem,
     options: Optional[SchurOptions] = None,
@@ -1479,12 +1577,10 @@ def solve_schur(
     explicit_s_max_images at obs_order="tie").  Parameter stds
     (compute_covariance=True) come from solver/covariance.py on the same
     device: the exact block covariance up to 1000 images, the Hutchinson
-    estimate past them.  The device loop (device_loop=True) raises
-    NotImplementedError.
+    estimate past them.  The device loop (solver/device_loop.py) drives
+    the solve where the JAX package's rule puts it (use_device_loop).
     """
     opts = options or SchurOptions()
-    if opts.device_loop:
-        raise _not_ported("device_loop", "device_loop=True")
     dev = resolve_device(device, "solve_schur")
     settings = problem.settings
     layout = ParamLayout(problem)
@@ -1503,18 +1599,10 @@ def solve_schur(
         obs_order=opts.obs_order,
     )
     raw_step = schur_step_fn(kernel, layout, use_ic, pairs=pairs)
-    cg_iterations = []  # 0-d device counts, read once at the end
-
-    def step(x, o, tol, lam):
-        out = raw_step(x, o, tol, lam)
-        cg_iterations.append(out[4])
-        return out
-
     (x, history, delta_history, v_local, stats, count, converged,
-     elapsed, stopped_on) = run_gn_loop(
-        step, obs, layout, problem, opts,
-        keep_history=keep_history, x0=x0, progress_fn=progress_fn,
-        checkpoint_path=checkpoint_path,
+     elapsed, stopped_on), cg_iterations = drive(
+        raw_step, obs, layout, problem, opts, keep_history, pairs,
+        x0=x0, progress_fn=progress_fn, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, device=dev,
     )
     v_np = unpermute_v(v_local, obs.order, problem.n_obs)
@@ -1523,8 +1611,7 @@ def solve_schur(
         stats.double().cpu().numpy(), count, converged, elapsed,
         keep_history, stopped_on,
     )
-    result.cg_iterations = (torch.stack(cg_iterations).tolist()
-                            if cg_iterations else [])
+    result.cg_iterations = cg_iterations
     if compute_covariance:
         from fish_eye_bundle_adjustment_tpu_torch.solver.covariance import compute_stds
 

@@ -3,6 +3,7 @@ CUDA card, on the 1k-image self-calibrating fisheye block of bench.py.
 
     python3 profile_torch_step.py             # from the repository root
     python3 profile_torch_step.py --explicit  # the explicit dense S instead
+    python3 profile_torch_step.py --unfused   # the float64 unfused step instead
 
 Imports nothing of JAX.  Three parts, each printing its own lines:
 
@@ -35,6 +36,10 @@ build_dense_S) on the largest block its auto gate takes, 600 images /
   profile   torch.profiler over one build_dense_S: the device's busy time
             and the top kernels by device time (the full table to
             chiprun_out/profile_torch_explicit.txt)
+
+With --unfused, the profile part alone for chip_smoke.py phase 9's step:
+float64, unfused (1,000 images are past the explicit-S gate), the K4
+segment sums; the full table to chiprun_out/profile_torch_unfused.txt.
 """
 
 import argparse
@@ -147,6 +152,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--explicit", action="store_true",
                         help="profile the explicit dense S on the 600-image block")
+    parser.add_argument("--unfused", action="store_true",
+                        help="profile the float64 unfused step on the bench block")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -157,6 +164,9 @@ def main():
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     if args.explicit:
         profile_explicit(dev, card)
+        return
+    if args.unfused:
+        profile_unfused(dev, card)
         return
 
     blk = make_block(
@@ -206,6 +216,39 @@ def main():
     print(f"[chunks] CG iterations per step: {sorted(set(cg_counts))}")
     result["cg_iterations_seen"] = sorted(set(cg_counts))
 
+    result["profile"] = profile_step(one_step, "profile_torch_step.txt")
+    print(json.dumps(result))
+
+
+def profile_unfused(dev, card):
+    """The profile part for phase 9's float64 unfused step (see --unfused)."""
+    blk = make_block(
+        n_img=1000, n_pts=100_000, model="fisheye", seed=2, control_frac=0.01,
+        settings_overrides={"inner_constraints": False, **SELFCAL},
+    )
+    p = blk.problem
+    layout = ParamLayout(p)
+    opts = schur.SchurOptions(cg_maxiter=CG_ITERS)
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, dtype=np.float64, device=dev)
+    step = schur.schur_step_fn(kern, layout, p.settings.inner_constraints)
+    x0 = torch.as_tensor(layout.initial(), device=dev)
+    print(f"[block] float64 unfused: n_obs={p.n_obs} u={layout.u} rows={obs.W.shape[0]}")
+    one_step = lambda: step(x0, obs, 0.0, 0.0)
+    for _ in range(2):
+        _sync_wall_ms(one_step)
+    walls = [_sync_wall_ms(one_step) for _ in range(STEPS)]
+    print(f"[steps] step {statistics.median(walls):.1f} ms (median of {STEPS}, "
+          f"{CG_ITERS} CG iterations)")
+    result = dict(card=card, torch=torch.__version__, n_obs=p.n_obs, cg_iters=CG_ITERS,
+                  step_ms=statistics.median(walls))
+    result["profile"] = profile_step(one_step, "profile_torch_unfused.txt")
+    print(json.dumps(result))
+
+
+def profile_step(one_step, table_name):
+    """torch.profiler over one step: its wall, the device's busy time and
+    the top kernels (the full table to chiprun_out/<table_name>)."""
     one_step()
     from torch.profiler import ProfilerActivity, profile
 
@@ -223,15 +266,14 @@ def main():
           f"flags back to the host and ran {cgc['matvecs']} matvecs")
     for e in top:
         print(f"[profile] {dev_self(e) / 1e3:9.2f} ms {e.count:5d} calls  {e.key[:90]}")
-    result["profile"] = dict(
-        chunk=default_chunk, step_ms=wall, device_busy_ms=busy_ms,
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, table_name), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    return dict(
+        chunk=projection.JACOBIAN_CHUNK, step_ms=wall, device_busy_ms=busy_ms,
         launches=sum(e.count for e in kernels), cg_host_reads=cgc["host_reads"],
         cg_matvecs=cgc["matvecs"],
         top=[dict(name=e.key, device_ms=dev_self(e) / 1e3, calls=e.count) for e in top])
-    os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "profile_torch_step.txt"), "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    print(json.dumps(result))
 
 
 if __name__ == "__main__":

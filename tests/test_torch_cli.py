@@ -172,17 +172,19 @@ def test_write_plots(tmp_path):
     assert all(Path(p).stat().st_size > 1000 for p in paths)
 
 
-@pytest.mark.parametrize("solver, item", [("posegraph", "item 9")])
-def test_unported_solvers_raise(tmp_path, capsys, solver, item):
-    """The pose graph raises NotImplementedError naming its ROADMAP.md
-    item; main reports it and returns 1."""
-    folder = _dataset(tmp_path, "eop12")
-    problem = load_problem(folder)
-    assert tcli.pick_solver(problem) == "dense"
-    with pytest.raises(NotImplementedError, match=item):
-        tcli._solve(problem, solver, device="cpu")
-    assert tcli.main(folder, plot=False, solver=solver, device="cpu") == 1
-    assert item in capsys.readouterr().err
+def test_posegraph_cli_reports_match_jax(tmp_path):
+    """`--solver posegraph --blocks 2` (two free-network block solves, the
+    similarity pose graph, the refine with its stds) through the port's
+    CLI against the JAX CLI's main(solver="posegraph", blocks=2) on the
+    12-image dataset: the reports equal but for the date and time lines
+    (the .rsd as the schur reports)."""
+    jdir = _dataset(tmp_path / "jax", "eop12")
+    tdir = tmp_path / "port" / "ds"
+    shutil.copytree(jdir, tdir)
+    assert jcli.main(jdir, plot=False, solver="posegraph", blocks=2) == 0
+    assert tcli.main(tdir, plot=False, solver="posegraph", blocks=2, device="cpu") == 0
+    _reports_match(jdir, tdir, atol=1e-12)
+    assert "n/a" not in (tdir / "ds.out").read_text()
 
 
 @pytest.mark.parametrize("solver", ["distributed", "sharded"])

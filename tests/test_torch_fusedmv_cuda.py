@@ -225,7 +225,9 @@ def test_wrappers_raise_on_inputs_the_kernel_does_not_take():
 def test_solve_on_card_matches_cpu():
     dev = _card()
     p = make_block(model="fisheye", **BLOCKS["eop12"]).problem
-    opts = schur.SchurOptions(dtype=np.float32)
+    # the host loop (the device loop's counts are
+    # tests/test_torch_device_loop_cuda.py's)
+    opts = schur.SchurOptions(dtype=np.float32, device_loop=False)
     fusedmv.reset_counts()
     on_card = schur.solve_schur(p, opts, compute_covariance=False, device=dev)
     assert fusedmv.kernel_launches["fused_hpp_pass"] == len(on_card.cg_iterations)

@@ -9,6 +9,7 @@ here, on the conftest's 8-device CPU mesh."""
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_blocks import jax_block, one_torch_thread, to_port  # noqa: F401 (autouse)
 from _torch_dist_worker import run_group
@@ -194,3 +195,24 @@ def test_mesh_stds_match_jax_mesh_estimate(ranks):
     assert np.median(rel) <= 1e-4 and rel.max() <= 1e-3
     assert got["counts"]["all_reduce"]["calls"] > 0
     assert got["counts"]["reduce_scatter"]["calls"] == got["counts"]["all_gather"]["calls"] == 0
+
+
+def _must_not_run(mesh):
+    raise AssertionError("a rank ran")
+
+
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """run_ranks(fn, n) with no device means the CUDA card: without one it
+    raises before it spawns a rank, and nothing runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import multiprocessing
+
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import mesh as pmesh
+
+    started = []
+    monkeypatch.setattr(multiprocessing, "get_context",
+                        lambda *a, **k: started.append(a) or pytest.fail("spawned ranks"))
+    with pytest.raises(RuntimeError, match="run_ranks: no CUDA device"):
+        pmesh.run_ranks(_must_not_run, 1)
+    assert not started

@@ -134,3 +134,22 @@ def test_float32_blocks_match_jax_float32(model):
         np.testing.assert_allclose(
             g, w, rtol=2e-5, atol=2e-6 * np.abs(w).max(), err_msg=name
         )
+
+
+def test_jacobians_in_threads_match_one_thread():
+    """Jacobian passes in several threads at once (the pose graph's block
+    solves run a thread a card) equal the pass in one thread, bitwise:
+    torch.func's forward mode keeps its nesting in a process global, so
+    unserialized threads lose each other's dual levels (zero Jacobian
+    columns on the card, a RuntimeError here)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    eop, iop, xyz, xy, nk = _inputs(True)
+    args = [torch.tensor(a, dtype=torch.float64) for a in (eop, iop, xyz, xy, -1.0)]
+    mid = jproj.MODEL_IDS[MODELS[0]]
+    want = tproj.batched_jacobian_blocks(*args, mid, nk)
+    with ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(lambda _: tproj.batched_jacobian_blocks(*args, mid, nk), range(16)))
+    for g in got:
+        for w, gg in zip(want, g):
+            assert torch.equal(gg, w)

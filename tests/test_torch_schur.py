@@ -151,16 +151,19 @@ NINE_IOPS = dict(estimate_c=True, estimate_xp=True, estimate_yp=True,
                  estimate_decent=True)
 
 
-@pytest.mark.parametrize("opts, kw, settings, item", [
-    (dict(dtype=np.float32, device_loop=True), {}, {}, "item 7"),
-], ids=["device_loop"])
-def test_outside_the_slice_raises(opts, kw, settings, item):
-    """Configurations the port does not cover yet raise, naming their
-    ROADMAP Queue 1 item; nothing falls back to another path."""
-    p = to_port(jax_block("eop12", **settings))
-    kw = {"compute_covariance": False, "device": "cpu", **kw}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        tschur.solve_schur(p, tschur.SchurOptions(**opts), **kw)
+@pytest.mark.parametrize("opts, kw, why", [
+    (dict(dtype=np.float64), {}, "explicit dense S"),
+    (dict(dtype=np.float32), dict(keep_history=True), "keep_history"),
+], ids=["pair_plan", "keep_history"])
+def test_device_loop_true_raises_where_it_does_not_apply(opts, kw, why):
+    """device_loop=True where the device loop does not apply -- the
+    explicit dense S (a PairPlan, the float64 default at 12 images) or
+    keep_history -- raises ValueError naming why, where the JAX package
+    runs its host loop silently; nothing falls back to another path."""
+    p = to_port(jax_block("eop12"))
+    with pytest.raises(ValueError, match=f"device_loop=True: .*{why}"):
+        tschur.solve_schur(p, tschur.SchurOptions(device_loop=True, **opts),
+                           compute_covariance=False, device="cpu", **kw)
 
 
 # The configurations that raised before the explicit dense S and the
@@ -315,6 +318,28 @@ def test_masked_pcg_matches_guarded_loop(case, dtype):
     x, i, rel = tschur._pcg(mv, b, pre, proj, tol, maxiter)
     assert i.dtype == torch.int32 and i.dim() == 0
     assert int(i) == ig and torch.equal(x, xg) and torch.equal(rel, relg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(PCG_CASES))
+def test_device_cg_matches_guarded_loop(case, dtype):
+    """Under device_cg() (the device loop's CG: each block of 8 masked
+    iterations under the flag the host loop reads, an IF node when a
+    graph is captured) the same x, count and residual, bitwise, and no
+    host read counted."""
+    kind, maxiter, tol, _, _ = PCG_CASES[case]
+    mv, b, pre, proj = _cg_system(kind, dtype)
+    tol = torch.tensor(tol, dtype=dtype)
+    xg, ig, relg, _ = _guarded_pcg(mv, b, pre, proj, tol, maxiter)
+    tschur.reset_cg_counts()
+    with tschur.device_cg():
+        x, i, rel = tschur._pcg(mv, b, pre, proj, tol, maxiter)
+    assert int(i) == ig and torch.equal(x, xg) and torch.equal(rel, relg)
+    assert tschur.cg_counts["host_reads"] == 0
+    # the blocks whose flag held ran, the others did not (the curvature
+    # guard trips on the iteration after the last one taken)
+    blocks = -(-(ig + (kind == "indefinite")) // 8)
+    assert tschur.cg_counts["matvecs"] == (maxiter if maxiter <= 16 else 8 * blocks)
 
 
 @pytest.mark.parametrize("maxiter", [5, 16, 17, 40])

@@ -116,14 +116,15 @@ def _assert_k4_count(res, direct=False):
     with `direct` (float32 at obs_order "img") all through the span
     segment sum's plain version and none through the prefix.  Several
     self-calibrating cameras add the camera sums of dcc, the reduced rhs
-    and the IOP preconditioner, and one per matvec.  CG runs
-    masked blocks of 8 iterations at cg_maxiter = 500, one host check
-    before each and one that stops: 8 matvecs per check but the last,
-    each block at least as long as the iterations it took."""
+    and the IOP preconditioner, and one per matvec.  These solves run the
+    device loop (the JAX rule: no explicit dense S, no history), whose CG
+    reads no flag back: masked blocks of 8 iterations at cg_maxiter = 500,
+    each under its flag, 8 matvecs a block that ran, the blocks at least
+    as long as the iterations they took."""
     cg = res.cg_iterations
     cgc = tschur.cg_counts
-    matvecs = 8 * (cgc["host_reads"] - cgc["calls"])
-    assert cgc["calls"] == len(cg) and cgc["matvecs"] == matvecs
+    matvecs = cgc["matvecs"]
+    assert cgc["calls"] == len(cg) and cgc["host_reads"] == 0 and matvecs % 8 == 0
     assert sum(cg) <= matvecs <= sum(cg) + 8 * len(cg)
     sums = (tstreamseg.plain_calls["span_segment_sum"] if direct
             else tprefix.plain_calls["chunk_prefix"])

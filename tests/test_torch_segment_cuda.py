@@ -123,7 +123,9 @@ def test_unfused_solve_on_card_matches_cpu():
     dev = _card()
     p = make_block(n_img=12, n_pts=150, model="fisheye", seed=13, control_frac=0.08,
                    settings_overrides={"inner_constraints": False}).problem
-    opts = schur.SchurOptions(explicit_s=False)
+    # the host loop, whose CG reads its flags back (the device loop's counts
+    # are tests/test_torch_device_loop_cuda.py's)
+    opts = schur.SchurOptions(explicit_s=False, device_loop=False)
     prefix.reset_counts()
     schur.reset_cg_counts()
     on_card = schur.solve_schur(p, opts, compute_covariance=False, device=dev)
