@@ -2,22 +2,27 @@
 1k-image self-calibrating bench block, beside the single-card solves they
 stand for.
 
-    python3 bench_torch_parallel.py [ranks] [posegraph]   # from the repository root
+    python3 bench_torch_parallel.py [ranks] [posegraph] [order]   # from the repository root
 
-With no argument it runs both parts.
+With no argument it runs ranks and posegraph.
 
-- ranks: one NCCL rank a card.  The single-card references are
-  chip_smoke.py's phases 6 (float32 fused, 5 GN iterations) and 9 (float64
-  unfused, 3 iterations) on cuda:0; the ranks then run chip_smoke's
-  phase-16 solves (`_distributed_rank`: solve_schur_distributed,
-  solve_schur_sharded_state(point_mode="sharded"),
-  solve_schur_fused_sharded on the host loop, which is also their default
-  over several ranks, then the mesh estimate of the stds of a 300-image
-  block) spawned by parallel/mesh.run_ranks.  Prints each solve's step
-  walls, launches and collectives (rank 0's), and x's distance from the
-  single-card solve in units of chip_smoke's tolerances (printed, not
-  enforced: with several ranks the sums add in another order, which a CG
-  cut at 40 iterations carries on).
+- ranks: one NCCL rank a card, the mesh's collectives the peer kernels
+  of ops/csrc/peercoll.cu.  The single-card references are chip_smoke.py's
+  phases 6 (float32 fused, 5 GN iterations) and 9 (float64 unfused, 3
+  iterations) on cuda:0; the ranks then run chip_smoke's phase-16 work
+  (`_distributed_rank`: solve_schur_distributed,
+  solve_schur_sharded_state(point_mode="sharded") and
+  solve_schur_fused_sharded under the host loop and then under the device
+  loop, their default, the collectives inside the graph's IF nodes; the
+  mesh estimate of the stds of a 300-image block; each collective at the
+  solvers' shapes against its plain version and NCCL) spawned by
+  parallel/mesh.run_ranks.  Prints each solve's step walls and replay
+  wall, capture seconds, launches and collectives (rank 0's, and per
+  step), x against the other driver (which chip_smoke holds bitwise) and
+  its distance from the single-card solve in units of chip_smoke's
+  tolerances (printed, not enforced: with several ranks the sums add in
+  another order, which a CG cut at 40 iterations carries on), and each
+  collective's time a call against NCCL's.
 - posegraph: the block solves of parallel/posegraph.solve_posegraph
   (n_blocks=4) one after the other on cuda:0 (its default), then block i
   on cuda:(i mod cards) still one after the other, then threaded over the
@@ -26,10 +31,21 @@ With no argument it runs both parts.
   stage's wall, and each block's x against the serial cuda:0 solve's
   (which must agree within chip_smoke's float64 tolerance, and the
   merged poses with them).
+- order (one card is enough): where fused_sharded's x over several ranks
+  lands against one card's.  chip_smoke's phase-6 solve (float32 fused,
+  5 GN iterations) on cuda:0, then solve_schur_fused_sharded at 2 and 4
+  ranks as spawned processes on cuda:0 (a gloo group, every collective a
+  peer kernel, as phase 19 runs them: the same sums in the same rank order
+  as over as many cards), each at phase 6's CG cut (40 iterations) and at
+  the solver's default (500: CG to its tolerance).  Prints each x's
+  distance from one card's at the same CG depth in units of chip_smoke's
+  fused_sharded tolerance, the CG counts, and a digest of each x (phase
+  16 prints the same digest over several cards).
 
 Imports nothing of JAX.
 """
 
+import dataclasses
 import sys
 import threading
 import time
@@ -67,19 +83,86 @@ def run_ranks_part(p, layout, plan, dev, card):
               f"rtol={tol['rtol']:g}, atol={tol['atol']:g}); sigma0^2 {r['sigma02']:.9f} "
               f"(one card {ref.sigma02:.9f}); cg {r['cg']} (one card {ref.cg_iterations}); "
               f"launches {r['launches']}; collectives {cs._coll(r['counts'])} [{card}]")
-        d = out.get(f"{name} device loop")
-        if d is not None:
-            print(f"[parallel] {name} at {n} rank(s) under the device loop: "
-                  f"{d['iterations']} iterations, {d['steps']} steps, {d['step_ms']:.1f} ms "
-                  f"of chunk loop a step (capture {d['capture_s']:.2f} s, {d['reads']} packed "
-                  f"reads), max |dx| from its host loop {np.abs(d['x'] - r['x']).max():.3e}; "
-                  f"cg {d['cg']} [{card}]")
+        d = out[f"{name} device loop"]
+        use = float(np.max(np.abs(d["x"] - ref.x) / (tol["atol"] + tol["rtol"] * np.abs(ref.x))))
+        steps = len(r["cg"])
+        per_step = ", ".join(f"{op} {c['calls'] / steps:.1f}" for op, c in r["counts"].items())
+        print(f"[parallel] {name} at {n} ranks under the device loop (device_loop="
+              f"{d['asked']}): {d['iterations']} iterations, {d['steps']} steps, replay wall "
+              f"{d['step_ms']:.1f} ms a step (chunk loop over the steps; host-loop step walls "
+              f"above), capture {d['capture_s']:.2f} s, {d['reads']} packed reads; x bitwise "
+              f"the host loop's: {d['bitwise']}, from one card {use:.3f} of the tolerance; "
+              f"cg {d['cg']}; launches {d['launches']}; collectives a step (host loop) "
+              f"{per_step} [{card}]")
     for what, us in out["psum_us"].items():
         print(f"[parallel] mesh.psum of {what}: {us:.1f} us a call [{card}]")
+    if "coll" in out:
+        cs._print_coll("parallel", out["coll"], card)
     st = out["stds"]
     print(f"[parallel] mesh stds of the {stds_p.n_img}-image block at {n} ranks: wall "
           f"{st['wall']:.2f} s, {st['cgc']['calls']} CG solves, {sum(st['its'])} iterations; "
           f"launches {st['launches']}; collectives {cs._coll(st['counts'])} [{card}]")
+
+
+ORDER_RANKS = (2, 4)
+ORDER_DEPTHS = (40, 500)  # phase 6's CG cut; SchurOptions' default
+
+
+def _order_problem(p):
+    return dataclasses.replace(p, settings=dataclasses.replace(p.settings, iteration_cap=5))
+
+
+def _order_rank(mesh, p):
+    """fused_sharded at each CG depth on this rank of a gloo group, every
+    rank on cuda:0 with its peer communicator: {depth: (x, cg, sigma0^2)}."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import fusedshard
+    from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    comm = peercoll.PeerComm(dev, mesh.index, mesh.size)
+    cmesh = Mesh(device=dev, size=mesh.size, index=mesh.index, comm=comm)
+    out = {}
+    for depth in ORDER_DEPTHS:
+        r = fusedshard.solve_schur_fused_sharded(
+            _order_problem(p), cmesh,
+            schur.SchurOptions(dtype=np.float32, cg_maxiter=depth, device_loop=False))
+        out[depth] = (r.x, r.cg_iterations, r.sigma02)
+    comm.close()
+    return out
+
+
+def run_order_part(p, dev, card):
+    tol = cs.FUSED_SHARD_TOL
+    one = {}
+    for depth in ORDER_DEPTHS:
+        r = schur.solve_schur(
+            _order_problem(p),
+            schur.SchurOptions(dtype=np.float32, cg_maxiter=depth, device_loop=False),
+            compute_covariance=False, device=dev)
+        one[depth] = (r.x, r.cg_iterations, r.sigma02)
+        print(f"[order] one card, CG cut {depth}: cg {r.cg_iterations}, sigma0^2 "
+              f"{r.sigma02:.9f}, x digest {cs.digest(r.x)} [{card}]")
+    failed = []
+    for n in ORDER_RANKS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = run_ranks(_order_rank, n, "cpu", args=(p,), timeout_s=1500)
+        print(f"[order] {n} ranks on cuda:0: {time.perf_counter() - t0:.1f} s")
+        for depth in ORDER_DEPTHS:
+            x, cg, s02 = got[depth]
+            ref = one[depth][0]
+            diff = np.abs(x - ref)
+            use = float(np.max(diff / (tol["atol"] + tol["rtol"] * np.abs(ref))))
+            print(f"[order] fused_sharded at {n} ranks, CG cut {depth}: max |dx| from one "
+                  f"card's {diff.max():.3e} ({use:.3f} of rtol={tol['rtol']:g}, "
+                  f"atol={tol['atol']:g}); cg {cg} (one card {one[depth][1]}); sigma0^2 "
+                  f"{s02:.9f} (one card {one[depth][2]:.9f}); x digest {cs.digest(x)} [{card}]")
+            if not np.isfinite(x).all():
+                failed.append((n, depth))
+    if failed:
+        raise RuntimeError(f"[order] FAIL: x not finite at {failed}")
 
 
 def run_posegraph_part(p, card):
@@ -162,8 +245,8 @@ def run_posegraph_part(p, card):
 
 def main():
     parts = sys.argv[1:] or ["ranks", "posegraph"]
-    if set(parts) - {"ranks", "posegraph"}:
-        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [posegraph]")
+    if set(parts) - {"ranks", "posegraph", "order"}:
+        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [posegraph] [order]")
     card = cs.phase_environment()
     dev = torch.device("cuda")
     cs.phase_build()
@@ -172,6 +255,8 @@ def main():
         run_ranks_part(p, layout, plan, dev, card)
     if "posegraph" in parts:
         run_posegraph_part(p, card)
+    if "order" in parts:
+        run_order_part(p, dev, card)
 
 
 if __name__ == "__main__":

@@ -84,9 +84,20 @@ _SIGNATURES = {
     # stream pred child capture_mode
     "graphcond_begin_if": ([_P, _P, _P, _I], _I),
     "graphcond_end": ([_P], _I),
+    "peercoll_abi_version": ([], _I),
+    "peercoll_max_ranks": ([], _I),
+    # device rank size half_bytes limit_s | comm_out handle_out
+    "peercoll_create": ([_I, _I, _I, ctypes.c_size_t, ctypes.c_double,
+                         ctypes.POINTER(ctypes.c_void_p), _P], _I),
+    # comm handles (size x 64 bytes)
+    "peercoll_open": ([_P, ctypes.c_char_p], _I),
+    # comm op dtype x x_stride out out_stride m stream
+    "peercoll_run": ([_P, _I, _I, _P, _L, _P, _L, _L, _P], _I),
+    "peercoll_error": ([_P], _I),
+    "peercoll_destroy": ([_P], _I),
 }
 _ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2,
-        "graphcond": 1}
+        "graphcond": 1, "peercoll": 1}
 
 
 def _nvcc() -> str:

@@ -259,19 +259,27 @@ def _tie_sums(vals, rank, tie, n_cols):
     return out
 
 
+def _sum_by(vals, idx, sel, rows, n_cols):
+    """(k, n_pad) per-row values -> (rows, n_cols) sums by column idx[sel].
+    On the CPU index_add_ adds in row order, in the values' type (the JAX
+    scatter's arithmetic, which the CPU solves are held to).  On the card
+    it adds atomically in no fixed order, so there the sums are taken in
+    float64 and rounded once: a float32 total would carry that order into
+    its last bits, run to run, and into the kernels' checks."""
+    acc = torch.float64 if vals.device.type == "cuda" else vals.dtype
+    out = torch.zeros((rows, n_cols), dtype=acc, device=vals.device)
+    out[: vals.shape[0]].index_add_(1, idx[sel], vals[:, sel].to(acc))
+    return out.to(vals.dtype)
+
+
 def _by_image(vals, img, inband, n_img_pad):
     """(k, n_pad) per-row values -> (8 or k, n_img_pad) sums per image rank."""
-    rows = max(8, vals.shape[0])
-    out = vals.new_zeros((rows, n_img_pad))
-    out[: vals.shape[0]].index_add_(1, img[inband], vals[:, inband])
-    return out
+    return _sum_by(vals, img, inband, max(8, vals.shape[0]), n_img_pad)
 
 
 def _by_lane(vals, lane, owned, rows=8):
     """(k, n_pad) per-row values -> (rows, 128) lane partials."""
-    out = vals.new_zeros((rows, 128))
-    out[: vals.shape[0]].index_add_(1, lane[owned], vals[:, owned])
-    return out
+    return _sum_by(vals, lane, owned, rows, 128)
 
 
 def fused_hpp_pass_ref(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
@@ -283,8 +291,7 @@ def fused_hpp_pass_ref(band: BandArrays, acam_t, apt_t, ne: int, ni: int,
     sym = torch.stack(
         [pt[a] * pt[b] + pt[3 + a] * pt[3 + b] for a in range(3) for b in range(a, 3)]
     ) * lf
-    hs = cam.new_zeros((8, band.G * band.M))
-    hs[:6].index_add_(1, rank[tie], _round(sym, precision)[:, tie])
+    hs = _sum_by(_round(sym, precision), rank, tie, 8, band.G * band.M)
     de = torch.stack([cam[e] * cam[e] + cam[ne + e] * cam[ne + e] for e in range(ne)]) * lf
     de = _round(de, precision)
     di8 = cam.new_zeros((8, 128))

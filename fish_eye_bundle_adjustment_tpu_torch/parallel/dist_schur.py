@@ -85,23 +85,24 @@ def make_distributed_step(problem: BAProblem, mesh: Mesh,
 def run_distributed(problem, mesh, opts, step, obs, layout, order, keep_history,
                     x0, progress_fn, checkpoint_path, checkpoint_every,
                     compute_covariance, v_rows=None, n_pad=None) -> DenseResult:
-    """The GN loop over a distributed step -- at one rank the device loop
-    unless keep_history or device_loop=False, the JAX package's rule; over
-    several ranks the host loop (schur.use_device_loop) -- then the
-    result every rank returns: the residual rows gathered and unpermuted,
-    the stds (with the mesh) when asked.  Progress and checkpoints are
-    rank 0's.  `n_pad` is the rank's residual rows when `obs` has no W."""
+    """The GN loop over a distributed step -- the device loop unless
+    keep_history or device_loop=False, the JAX package's rule
+    (schur.use_device_loop) at every rank count -- then the result every
+    rank returns: the residual rows gathered and unpermuted, the stds
+    (with the mesh) when asked.  Progress and checkpoints are rank 0's.
+    `n_pad` is the rank's residual rows when `obs` has no W."""
     writer = mesh.index == 0
     (x, history, delta_history, v_local, stats, count, converged,
      elapsed, stopped_on), cg_iterations = drive(
         step, obs, layout, problem, opts, keep_history,
-        writes_checkpoints=writer, n_pad=n_pad, mesh_counts=mesh.counts, ranks=mesh.size,
+        writes_checkpoints=writer, n_pad=n_pad, mesh=mesh,
         x0=x0, progress_fn=progress_fn if writer else None,
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
         device=mesh.device,
     )
     v_np = v_rows(v_local) if v_rows else unpermute_v(
         torch.as_tensor(gather_v(mesh, v_local, problem.n_obs)), order, problem.n_obs)
+    mesh.check()  # the rows came back to the host: every collective has ended
     result = _finalize(
         problem, layout, x, history, delta_history, v_np,
         stats.double().cpu().numpy(), count, converged, elapsed,
@@ -136,8 +137,7 @@ def solve_schur_distributed(
     """The distributed counterpart of solve_schur: same conventions and,
     by construction, the same arithmetic up to the order of the sums.
     Every rank of `mesh` (default: make_mesh()) calls it and gets the same
-    result.  The device loop drives it by default at one rank, the host
-    loop over several (run_distributed).
+    result.  The device loop drives it by default (run_distributed).
 
     `compute_covariance` defaults off, as in the JAX package: past the
     dense-S gate the stds take 3k + n_probe solves (over the mesh here);

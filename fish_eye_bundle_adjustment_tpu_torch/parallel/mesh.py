@@ -15,8 +15,13 @@ A `Mesh` is one rank's handle on the group: its size, its index (the JAX
 ``axis_index``), its device and the three collectives the solvers take,
 each standing where the JAX package has ``psum``, ``psum_scatter`` and
 ``all_gather``.  It counts the calls and bytes of each (`counts`), as the
-kernel wrappers count their launches.  The collectives run on NCCL when
-the ranks hold CUDA devices and on gloo on the CPU.
+kernel wrappers count their launches (utils/cudagraph.count_launch: under
+a captured graph, what the replays ran).  Over several ranks on the card
+the collectives are the port's own kernels over peer memory
+(ops/peercoll.py, the Mesh's `comm`), so that the device loop's graph holds
+them inside its IF nodes; at one rank on the card they are NCCL's, and on
+the CPU gloo's.  NCCL (gloo on the CPU) also carries what is not in a
+step: the group's start, barriers and the peer handles' exchange.
 
 `run_ranks` starts the ranks of one run as processes (spawned, so they
 import this package and torch only) and returns rank 0's result.
@@ -38,6 +43,9 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import count_launch
 
 OBS_AXIS = "obs"
 
@@ -65,28 +73,40 @@ class Mesh:
     # calls and bytes sent (the input of each call) by operation
     counts: dict = dataclasses.field(
         default_factory=lambda: {op: {"calls": 0, "bytes": 0} for op in _OPS})
+    # the peer kernels' communicator: over several ranks on the card
+    comm: Optional[peercoll.PeerComm] = dataclasses.field(default=None, repr=False)
 
     def reset_counts(self) -> None:
         for c in self.counts.values():
             c["calls"] = c["bytes"] = 0
 
     def _count(self, op, t):
-        self.counts[op]["calls"] += 1
-        self.counts[op]["bytes"] += t.numel() * t.element_size()
+        count_launch(self.counts[op], "calls", self.device)
+        count_launch(self.counts[op], "bytes", self.device, t.numel() * t.element_size())
+
+    def check(self) -> None:
+        """Raise if a peer collective gave up waiting for a rank (after a
+        read of the card: it sees the launches that have ended)."""
+        if self.comm is not None:
+            self.comm.check()
 
     def psum(self, x):
         """Sum over the ranks (``psum``): a new tensor, equal on every rank."""
+        self._count("all_reduce", x)
+        if self.comm is not None:
+            return peercoll.all_reduce(x, self.comm)
         y = x.contiguous().clone()
-        self._count("all_reduce", y)
         dist.all_reduce(y, op=dist.ReduceOp.SUM)
         return y
 
     def psum_scatter(self, x):
         """Sum over the ranks, then this rank's slice of dim 0
         (``psum_scatter(tiled=True)``): x (size * m, ...) -> (m, ...)."""
+        self._count("reduce_scatter", x)
+        if self.comm is not None:
+            return peercoll.reduce_scatter(x, self.comm)
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
-        self._count("reduce_scatter", x)
         with warnings.catch_warnings():
             _quiet_deprecation()
             dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM)
@@ -95,9 +115,11 @@ class Mesh:
     def all_gather(self, x):
         """Every rank's x stacked along dim 0 in rank order
         (``all_gather(tiled=True)``): (m, ...) -> (size * m, ...)."""
+        self._count("all_gather", x)
+        if self.comm is not None:
+            return peercoll.all_gather(x, self.comm)
         x = x.contiguous()
         out = x.new_empty((x.shape[0] * self.size,) + tuple(x.shape[1:]))
-        self._count("all_gather", x)
         with warnings.catch_warnings():
             _quiet_deprecation()
             dist.all_gather_into_tensor(out, x)
@@ -111,7 +133,10 @@ def _quiet_deprecation():
     warnings.filterwarnings("ignore", category=FutureWarning, message=".*is deprecated")
 
 
-_STATE = {"device": None}
+# this process's device in the default group, and its peer communicator
+# (over several ranks on the card: one a group, opened by the first
+# make_mesh, closed by shutdown)
+_STATE = {"device": None, "comm": None}
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -121,7 +146,7 @@ def init_distributed(coordinator: Optional[str] = None,
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
     """Join the default process group as rank `process_id` of
     `num_processes`, meeting the others at `coordinator`
-    ("tcp://host:port"; None: the torchrun environment).  `device` is this
+    ("tcp://host:port" or "file://path"; None: the torchrun environment).  `device` is this
     rank's device: "cuda" means cuda:<rank>, and a CUDA device takes NCCL,
     the CPU gloo -- never the one in place of the other.  Returns the
     device."""
@@ -149,19 +174,28 @@ def _local_rank() -> int:
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     """The Mesh of the default process group (init_distributed first) on
     this rank's device.  `n_devices`, when given, must be the group's
-    size: a rank cannot take part in a smaller mesh."""
+    size: a rank cannot take part in a smaller mesh.  Over several ranks
+    on the card the first call opens the group's peer communicator
+    (collective: every rank calls it), which every later Mesh of the group
+    shares."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call init_distributed first")
     size = dist.get_world_size()
     if n_devices is not None and n_devices != size:
         raise ValueError(f"make_mesh: the process group has {size} ranks, not {n_devices}")
-    return Mesh(device=_STATE["device"], size=size, index=dist.get_rank())
+    dev, rank = _STATE["device"], dist.get_rank()
+    if dev.type == "cuda" and size > 1 and _STATE["comm"] is None:
+        _STATE["comm"] = peercoll.PeerComm(dev, rank, size)
+    return Mesh(device=dev, size=size, index=rank, comm=_STATE["comm"])
 
 
 def shutdown() -> None:
+    """Close the group's peer communicator, then leave the group."""
     if dist.is_initialized():
+        if _STATE["comm"] is not None:
+            _STATE["comm"].close()
         dist.destroy_process_group()
-    _STATE["device"] = None
+    _STATE.update(device=None, comm=None)
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +244,11 @@ def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEO
         if n > have:
             raise ValueError(f"run_ranks: {n} ranks need {n} CUDA devices; {have} visible")
     ctx = mp.get_context("spawn")
-    coordinator = f"tcp://127.0.0.1:{_free_port()}"
     coll_s = collective_timeout_s or timeout_s
     with tempfile.TemporaryDirectory() as out_dir:
+        # the ranks meet at a file of the run's own directory: no port to
+        # pick, which another process could take before rank 0 listens
+        coordinator = f"file://{Path(out_dir) / 'rendezvous'}"
         procs = [ctx.Process(target=_rank_main,
                              args=(r, n, coordinator, device, fn, args, out_dir, coll_s))
                  for r in range(n)]

@@ -26,10 +26,12 @@ Its two executions:
   replay after the stop runs nothing; that lets the host issue the next
   chunk before it reads this one, as the JAX loop does.  CG runs without
   host reads, each block of its masked iterations under an IF node on the
-  flag the host loop reads (solver/schur.py `device_cg`).  NCCL
-  collectives between several ranks do not capture inside an IF node, so
-  a solve over several NCCL ranks is not captured (parallel/dist_schur.py
-  runs the host loop there);
+  flag the host loop reads (solver/schur.py `device_cg`).  Over several
+  ranks the mesh's collectives are kernels over peer memory
+  (ops/peercoll.py) inside the same IF nodes, where NCCL's would not
+  capture; every rank captures and replays the same body in lockstep, and
+  a rank that never arrives makes the others' collectives give up, which
+  the read after each chunk raises;
 - on the CPU (the tests) the same body runs eagerly, the conditions read
   from host memory.
 
@@ -46,10 +48,11 @@ where it launches its kernel.  A capture launches nothing, so its moves
 warm-up body left them; the launches the replays ran are counted on the
 card (utils/cudagraph.count_launch) and added to the counters after the
 loop (`loop_counts["replayed"]`).  So after a captured solve the launch
-counters hold the warm-up's launches plus those the replays ran, an IF
-node that was off counting nothing; the CG and collective counters hold
-the warm-up's.  The counters are not valid while solves run in several
-threads at once (a capture sets them back to a snapshot).
+counters and a mesh's collective counts (Mesh.counts, counted the same
+way) hold the warm-up's plus what the replays ran, an IF node that was
+off counting nothing; the CG counters hold the warm-up's.  The counters
+are not valid while solves run in several threads at once (a capture
+sets them back to a snapshot).
 """
 
 from __future__ import annotations
@@ -64,7 +67,6 @@ from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as ckpt_mod
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import (
     StepGraph,
     capture_lock,
-    collect_replayed,
     run_if,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
@@ -108,19 +110,22 @@ _STATE_KEYS = ("x", "v", "stats", "count", "status", "have_pend", "pend_x",
 loop_counts: dict = {}
 
 
-def _counters(mesh_counts=None):
+def _counters(mesh=None):
     """The launch and CG counters a captured body moves, by name, with a
     mesh's collective counts (Mesh.counts) when given."""
-    from fish_eye_bundle_adjustment_tpu_torch.ops import fusedmv, prefix, probes, streamseg
+    from fish_eye_bundle_adjustment_tpu_torch.ops import (
+        fusedmv, peercoll, prefix, probes, streamseg,
+    )
     from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 
     out = {"fusedmv": fusedmv.kernel_launches, "fusedmv_plain": fusedmv.plain_calls,
            "prefix": prefix.kernel_launches, "prefix_by_width": prefix.kernel_launches_by_width,
            "prefix_plain": prefix.plain_calls, "streamseg": streamseg.kernel_launches,
            "streamseg_plain": streamseg.plain_calls, "probes": probes.kernel_launches,
-           "probes_plain": probes.plain_calls, "cg": schur.cg_counts}
-    if mesh_counts is not None:
-        out["mesh"] = mesh_counts
+           "probes_plain": probes.plain_calls, "peercoll": peercoll.kernel_launches,
+           "peercoll_plain": peercoll.plain_calls, "cg": schur.cg_counts}
+    if mesh is not None:
+        out["mesh"] = mesh.counts
     return out
 
 
@@ -316,7 +321,7 @@ def run_gn_loop_device(
     checkpoint_path=None, checkpoint_every: int = 1, chunk: int = 16,
     n_pad: Optional[int] = None, device="cpu", writes_checkpoints: bool = True,
     cg_iterations: Optional[list] = None, capture: Optional[bool] = None,
-    mesh_counts: Optional[dict] = None,
+    mesh=None,
 ):
     """Drop-in replacement for solver/schur.run_gn_loop running `chunk` GN
     iterations per host read.  Same return tuple: (x, history,
@@ -330,8 +335,10 @@ def run_gn_loop_device(
     comparing the two on the card).  Each step's CG iteration count is
     appended to `cg_iterations` when given.  Under a mesh every rank runs
     the loop in lockstep (the packed read is equal on every rank); only
-    the rank with `writes_checkpoints` saves checkpoints, and
-    `mesh_counts` (Mesh.counts) are kept like the launch counters."""
+    the rank with `writes_checkpoints` saves checkpoints, `mesh`'s
+    collective counts (Mesh.counts) are kept like the launch counters, and
+    its check runs after each chunk's read (a collective that gave up
+    waiting for a rank raises there)."""
     settings = problem.settings
     dev = torch.device(device)
     capture = dev.type == "cuda" if capture is None else capture
@@ -372,7 +379,7 @@ def run_gn_loop_device(
         # at most 2 records, so the buffer's bound never binds within a chunk
         run_if(st["status"] == RUNNING, body)
 
-    counters = _counters(mesh_counts)
+    counters = _counters(mesh)
     info = dict(graph=capture, capture_s=0.0, warmup={}, per_body={}, replays=0, steps=0,
                 reads=0, loop_s=0.0, capture_reserved_bytes=0, replayed={})
     graph = None
@@ -382,7 +389,10 @@ def run_gn_loop_device(
               for _ in range(2)] if dev.type == "cuda" else [])
     with device_cg():
         if capture:
-            graph = _capture(gated, body, st, recs, ri, si, dev, counters, info)
+            # the bodies that count launches: the step and each CG block
+            # (one CG a step), with room to spare
+            bodies = 16 + 2 * -(-opts.cg_maxiter // 8)
+            graph = _capture(gated, body, st, recs, ri, si, dev, counters, info, bodies)
         step_once = graph.replay if graph is not None else gated
 
         def issue():
@@ -418,6 +428,8 @@ def run_gn_loop_device(
                 host, done, snap = pending
                 if done is not None:
                     done.synchronize()  # ONE host sync per chunk
+                    if mesh is not None:
+                        mesh.check()
                 info["reads"] += 1
                 arr = host.double().numpy()
                 recs_h = arr[: nrec * N_COLS].reshape(nrec, N_COLS)
@@ -467,7 +479,7 @@ def run_gn_loop_device(
                 torch.cuda.current_stream(dev).synchronize()
             info["loop_s"] = time.perf_counter() - t_loop
             if graph is not None:
-                info["replayed"] = collect_replayed(dev)
+                info["replayed"] = graph.collect()
             loop_counts.clear()
             loop_counts.update(info)
 
@@ -478,7 +490,7 @@ def run_gn_loop_device(
             converged, elapsed, stopped_on)
 
 
-def _capture(gated, body, st, recs, ri, si, dev, counters, info):
+def _capture(gated, body, st, recs, ri, si, dev, counters, info, bodies):
     """Warm the body up on a copy of the state (builds the kernels and the
     host caches, sets the kernels' attributes, warms the allocator), then
     capture `gated`; the seconds, the counters' moves in each and the
@@ -501,11 +513,10 @@ def _capture(gated, body, st, recs, ri, si, dev, counters, info):
             t.copy_(v)
         torch.cuda.synchronize(dev)
         warmed = {k: _copy(d) for k, d in counters.items()}
-        collect_replayed(dev, add=False)  # the replays' tally from zero
+        graph = StepGraph(bodies)
         # the capture empties the allocator's cache first: measure from there
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        graph = StepGraph()
         graph.capture(gated)
         info["warmup"] = {k: _diff(warmed[k], before[k]) for k in counters}
         info["per_body"] = {k: _diff(d, warmed[k]) for k, d in counters.items()}

@@ -1101,6 +1101,12 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
         rz = torch.where(take, rz_new, rz)
         return i + take.to(torch.int32), x, r, z, p, rz, ok
 
+    def flag(state):
+        """Whether the next block of iterations has work: the host loop's
+        read, the device loop's IF node."""
+        i, _, r, *_, ok = state
+        return (i < maxiter) & (dot(r, r) > tol2) & ok
+
     z0 = project(precond(b))
     dev = bnorm2.device
     state = (torch.zeros((), dtype=torch.int32, device=dev),
@@ -1110,9 +1116,13 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
         for _ in range(maxiter):
             state = masked_iter(state)
     elif getattr(_cg_mode, "device", False):
-        # the state in tensors of its own, which each block updates in place
-        # (a block that does not run leaves them as they are)
+        # the state in tensors of its own, which each block updates in place,
+        # and the flag of the next block, which each block sets at its end:
+        # a block that does not run leaves them as they are, so the blocks
+        # past CG's stop compute nothing, not even their flag (an all-reduce
+        # where `dot` is one) -- the flags computed are the host loop's reads
         live = [_tmap(torch.clone, t) for t in state]
+        go = flag(live)
 
         def block():
             out = tuple(live)
@@ -1120,16 +1130,15 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
                 out = masked_iter(out)
             for dst, src in zip(live, out):
                 _tmap(lambda d, v: d.copy_(v), dst, src)
+            go.copy_(flag(out))
 
         for _ in range(-(-maxiter // _CG_UNROLL)):
-            i, _, r, *_, ok = live
-            run_if((i < maxiter) & (dot(r, r) > tol2) & ok, block)
+            run_if(go, block)
         state = tuple(live)
     else:
         def go_on(state):
-            i, _, r, *_, ok = state
             cg_counts["host_reads"] += 1
-            return bool((i < maxiter) & (dot(r, r) > tol2) & ok)
+            return bool(flag(state))
 
         while go_on(state):
             for _ in range(_CG_UNROLL):
@@ -1504,22 +1513,19 @@ def make_pair_plan(problem, layout, opts: SchurOptions, device="cpu"):
     )
 
 
-def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None, ranks: int = 1,
-                    device="cpu") -> bool:
+def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None) -> bool:
     """Whether the device loop drives a solve: at device_loop=None the JAX
-    package's rule (no explicit dense S, no kept history) on one rank,
-    False the host loop.  device_loop=True where the device loop does not
-    apply raises, where the JAX package runs the host loop silently.  Over
-    several ranks the device loop runs only when asked and on the CPU (its
-    eager body over gloo): NCCL collectives between ranks do not capture
-    inside a CUDA graph's IF node, so the card runs the host loop there."""
+    package's rule (no explicit dense S, no kept history), False the host
+    loop.  device_loop=True where the device loop does not apply raises,
+    where the JAX package runs the host loop silently.  The rule is the same
+    at every rank count: over several ranks on the card the mesh's
+    collectives are kernels (ops/peercoll.py) that the graph's IF nodes
+    hold."""
     if opts.device_loop is False:
         return False
     why = ("the explicit dense S (a PairPlan) runs the host loop" if pairs is not None
            else "keep_history runs the host loop" if keep_history
-           else None if ranks == 1 or (opts.device_loop and torch.device(device).type == "cpu")
-           else f"{ranks} ranks run the host loop (NCCL collectives between ranks do not "
-                "capture inside a CUDA graph's IF node)")
+           else None)
     if why is None:
         return True
     if opts.device_loop:
@@ -1528,20 +1534,20 @@ def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None, ranks: i
 
 
 def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
-          writes_checkpoints=True, n_pad=None, mesh_counts=None, ranks=1, **kw):
+          writes_checkpoints=True, n_pad=None, mesh=None, **kw):
     """Run the GN loop use_device_loop picks over `raw_step`: (the loop's
     9-tuple, the CG iterations of every step as ints).  `kw` are the
     loops' common keywords (x0, progress_fn, checkpoint_path,
-    checkpoint_every, device); `n_pad` and `mesh_counts` go to the device
-    loop, `ranks` (the mesh's size) to use_device_loop."""
-    if use_device_loop(opts, keep_history, pairs, ranks, kw.get("device", "cpu")):
+    checkpoint_every, device); `n_pad` and `mesh` (the Mesh of a
+    distributed step) go to the device loop."""
+    if use_device_loop(opts, keep_history, pairs):
         from fish_eye_bundle_adjustment_tpu_torch.solver.device_loop import run_gn_loop_device
 
         cg_iterations = []
         out = run_gn_loop_device(
             raw_step, obs, layout, problem, opts, chunk=opts.device_chunk, n_pad=n_pad,
             writes_checkpoints=writes_checkpoints, cg_iterations=cg_iterations,
-            mesh_counts=mesh_counts, **kw)
+            mesh=mesh, **kw)
         return out, cg_iterations
     counted = []  # 0-d device counts, read once at the end
 

@@ -18,14 +18,19 @@ only where the 0-d bool device tensor ``pred`` is true.
 
 NCCL collectives between several ranks do not capture inside an IF node's
 body (NCCL adds nodes of its own that a conditional body graph may not
-hold), so a distributed solve over several ranks is not captured.
+hold), so over several ranks on the card the mesh's collectives are the
+port's own kernels over peer memory (ops/peercoll.py), which capture like
+any other kernel.
 
 A kernel's launches inside a graph are counted on the device: each
-wrapper counts through ``count_launch``, which under a capture also
-captures a one-element add beside the kernel into a tally on the card.
-The add runs where and as often as a replay runs the kernel (an IF node
-that is off runs neither), and ``collect_replayed`` adds the tally to the
-wrapper's counter, so the counters hold what ran, not what was captured.
+wrapper counts through ``count_launch``, which under a capture also notes
+the count against the body being captured (the capture's root, or an IF
+node's body).  A body runs all of its nodes or none, so one captured
+one-element add per body that counts anything, into the graph's tally on
+the card, says how often each of its counts ran; ``StepGraph.collect``
+adds each body's counts times its runs to the counters, so they hold what
+the replays ran (an IF node that is off runs nothing), not what was
+captured.
 
 Nothing here runs at import; a capture builds the kernel library first.
 """
@@ -47,19 +52,12 @@ capture_lock = threading.Lock()
 
 _local = threading.local()
 
-# the device tallies of launches inside graphs: a slot per (counter dict,
-# key), one int64 tensor per card
-_MAX_SLOTS = 64
-_slots: dict = {}
-_slot_keys: list = []
-_tallies: dict = {}
-
-
 def _state():
     if not hasattr(_local, "pool"):
         _local.pool = None
         _local.streams = {}
         _local.depth = 0
+        _local.frames = []  # [graph, slot or None] per body being captured
     return _local
 
 
@@ -90,78 +88,92 @@ def run_if(pred, body) -> None:
     pool = (torch.cuda.use_mem_pool(st.pool, device=pred.device) if st.depth == 0
             else contextlib.nullcontext())
     st.depth += 1
+    st.frames.append([st.frames[-1][0], None])
     try:
         with torch.cuda.stream(child), pool:
             body()
     finally:
+        st.frames.pop()
         st.depth -= 1
         _build.check(lib.graphcond_end(child.cuda_stream), "graphcond_end")
 
 
-def _tally(index: int):
-    if index not in _tallies:
-        _tallies[index] = torch.zeros(_MAX_SLOTS, dtype=torch.int64,
-                                      device=torch.device("cuda", index))
-    return _tallies[index]
-
-
-def count_launch(counts: dict, key, device) -> None:
+def count_launch(counts: dict, key, device, n: int = 1) -> None:
     """Count one launch of a kernel just issued on `device`'s current
-    stream into counts[key].  Eagerly the count moves at once.  Under a
-    capture it moves at once too (what the graph holds, which the capture's
-    caller may take back), and an add into the card's tally is captured
-    beside the kernel, which collect_replayed turns into launches run."""
-    counts[key] = counts.get(key, 0) + 1
+    stream into counts[key] (`n` where the count is of something else a
+    launch moves, such as bytes).  Eagerly the count moves at once.  Under
+    a capture it moves at once too (what the graph holds, which the
+    capture's caller may take back), and, in a StepGraph's capture, the
+    count is noted against the body being captured, whose runs the graph's
+    tally counts (StepGraph.collect)."""
+    counts[key] = counts.get(key, 0) + n
     if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
         return
-    slot = _slots.get((id(counts), key))
-    if slot is None:
-        if len(_slot_keys) == _MAX_SLOTS:
-            raise RuntimeError(f"count_launch: more than {_MAX_SLOTS} counted kernels")
-        slot = _slots[(id(counts), key)] = len(_slot_keys)
-        _slot_keys.append((counts, key))
-    _tally(torch.cuda.current_device() if device.index is None else device.index)[slot].add_(1)
-
-
-def collect_replayed(device, add: bool = True) -> dict:
-    """The launches graph replays ran on `device` since the last collect,
-    by kernel ({key: n} per counter dict's key), added to the counters when
-    `add`; the tally starts again from zero.  Synchronizes the card."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    tally = _tally(index)
-    vals = tally.tolist()
-    tally.zero_()
-    ran = {}
-    for (counts, key), n in zip(_slot_keys, vals):
-        if n:
-            ran[key] = ran.get(key, 0) + n
-            if add:
-                counts[key] = counts.get(key, 0) + n
-    return ran
+    frames = _state().frames
+    if frames:
+        graph, slot = frames[-1]
+        if slot is None:
+            slot = frames[-1][1] = graph.new_body()
+        entry = graph.bodies[slot].setdefault((id(counts), key), [counts, key, 0])
+        entry[2] += n
 
 
 class StepGraph:
     """One captured function and what its replays need alive: the graph,
-    and the memory pool of its conditional bodies."""
+    the memory pool of its conditional bodies, and the tally of its bodies'
+    runs on the current card (a slot per body that counts launches, at
+    most `bodies`; `bodies[slot]` holds the body's counts as
+    {(id(counts), key): [counts, key, n]}).  The tally is made here,
+    before the capture: a tally taken under the capture did not stay the
+    tally's alone (its slots read back other data after replays)."""
 
-    def __init__(self):
+    def __init__(self, bodies: int = 256):
         self.graph = torch.cuda.CUDAGraph()
         self.pool = torch.cuda.MemPool()
+        self.bodies: list = []
+        self._tally = torch.zeros(bodies, dtype=torch.int64,
+                                  device=torch.cuda.current_device())
+
+    def new_body(self) -> int:
+        """A slot for the body being captured, and the add of one into it
+        on the current stream: it runs where the body runs."""
+        slot = len(self.bodies)
+        if slot == self._tally.numel():
+            raise RuntimeError(f"StepGraph: more than {slot} bodies count launches; "
+                               "make the graph with more `bodies`")
+        self.bodies.append({})
+        self._tally[slot].add_(1)
+        return slot
 
     def capture(self, fn) -> None:
         """Capture fn() (on a side stream, in thread-local mode) after the
         caller's warm-up; run_if inside it adds IF nodes."""
         st = _state()
         st.pool = self.pool
-        _tally(torch.cuda.current_device())  # made before the capture, not in it
+        st.frames = [[self, None]]
         try:
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 fn()
         finally:
             st.pool = None
             st.depth = 0
+            st.frames = []
 
     def replay(self) -> None:
         self.graph.replay()
+
+    def collect(self, add: bool = True) -> dict:
+        """The counts the replays ran since the last collect ({key: n},
+        summed over the counter dicts), added to the counters when `add`;
+        the tally starts again from zero.  Synchronizes the card."""
+        runs = self._tally.tolist()
+        self._tally.zero_()
+        ran = {}
+        for body, times in zip(self.bodies, runs):
+            if not times:
+                continue
+            for counts, key, n in body.values():
+                ran[key] = ran.get(key, 0) + times * n
+                if add:
+                    counts[key] = counts.get(key, 0) + times * n
+        return ran

@@ -94,6 +94,40 @@ def tie_sums(mesh, tie_sorted, n_tie, vals):
     return _np(ops.gather_global(local[: ops.L])), _np(ops.expand(local)[:m])
 
 
+def peer_inputs(rank, size, dtype, seed=0):
+    """Rank `rank`'s inputs of the peer-collective cases, by name: (op,
+    array); the "big" ones pass the 4 MiB workspace (ops/peercoll.py) in
+    float32 and float64, so they run in chunks, the last one ragged.
+    Every rank makes every rank's from the seed, so the test can."""
+    g = np.random.default_rng([seed, rank])
+    r = lambda *shape: (g.standard_normal(shape) * 10.0 ** g.integers(-3, 4, shape)).astype(dtype)
+    return {
+        "scalar": ("all_reduce", r()),
+        "vector": ("all_reduce", r(7)),
+        "big": ("all_reduce", r(1_300_001)),
+        "blocks": ("reduce_scatter", r(size * 3, 2, 5)),
+        "big_scatter": ("reduce_scatter", r(size * 700_001)),
+        "rows": ("all_gather", r(3, 2)),
+        "big_gather": ("all_gather", r(700_001, 2)),
+    }
+
+
+def peer_plain(mesh, seed=0):
+    """The plain peer collectives (ops/peercoll.py, CPU tensors) on this
+    rank's inputs, in float32 and float64: {(name, dtype): (result, plain
+    calls)}."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+
+    comm = peercoll.PeerComm("cpu", mesh.index, mesh.size)
+    out = {}
+    for dtype in ("float32", "float64"):
+        for name, (op, x) in peer_inputs(mesh.index, mesh.size, dtype, seed).items():
+            peercoll.reset_counts()
+            got = getattr(peercoll, op)(torch.as_tensor(x), comm)
+            out[(name, dtype)] = (_np(got), peercoll.plain_calls[f"peer_{op}"])
+    return out
+
+
 # -- the three solvers ---------------------------------------------------------
 
 _STEPS = {
@@ -142,13 +176,18 @@ def step(mesh, mode, problem, opts, xs, lams, cg_tol, **kw):
 
 
 def solve(mesh, mode, problem, opts, **kw):
-    """A whole solve of `mode`, and the collectives it made."""
+    """A whole solve of `mode`, the collectives it made, and its driver
+    (the device loop leaves solver/device_loop.loop_counts)."""
+    from fish_eye_bundle_adjustment_tpu_torch.solver import device_loop
+
     mesh.reset_counts()
+    device_loop.loop_counts.clear()
     r = _fn(_SOLVES, mode)(problem, mesh, _opts(opts), **kw)
     return dict(x=r.x, iterations=r.iterations, converged=r.converged,
                 stopped_on=r.stopped_on, sigma02=r.sigma02, v=r.v, rms=r.rms,
                 cg_iterations=r.cg_iterations, std=r.std, std_method=r.std_method,
-                counts={k: dict(v) for k, v in mesh.counts.items()})
+                counts={k: dict(v) for k, v in mesh.counts.items()},
+                driver="device loop" if device_loop.loop_counts else "host loop")
 
 
 def fused_partials(problem, opts, n_shards):

@@ -20,6 +20,7 @@ atol 3e-4), its iterations within one.
 
 import dataclasses
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -288,22 +289,24 @@ def test_fused_f32_matches_jax():
 
 def test_dispatch_follows_the_jax_rule():
     """device_loop=None takes the device loop exactly where the JAX
-    package's solve_schur does (no explicit dense S, no kept history) on
-    one rank; False always the host loop.  Over several ranks None takes
-    the host loop, True the device loop's eager body on the CPU and a
-    ValueError on the card (NCCL between ranks does not capture inside an
-    IF node)."""
+    package's solve_schur does (no explicit dense S, no kept history);
+    False always the host loop; True raises only for those two cases.  The
+    rule is the same at every rank count and device: it takes neither (over
+    several ranks on the card the collectives are the peer kernels that
+    the graph's IF nodes hold), and True no longer raises for ranks."""
     default = tschur.SchurOptions()
     assert tschur.use_device_loop(default, False)
     assert not tschur.use_device_loop(default, False, pairs=object())
     assert not tschur.use_device_loop(default, True)
     assert not tschur.use_device_loop(tschur.SchurOptions(device_loop=False), False)
     asked = tschur.SchurOptions(device_loop=True)
-    for device in ("cpu", "cuda"):
-        assert not tschur.use_device_loop(default, False, ranks=2, device=device)
-    assert tschur.use_device_loop(asked, False, ranks=2, device="cpu")
-    with pytest.raises(ValueError, match="device_loop=True: 4 ranks run the host loop"):
-        tschur.use_device_loop(asked, False, ranks=4, device="cuda")
+    assert list(inspect.signature(tschur.use_device_loop).parameters) == [
+        "opts", "keep_history", "pairs"]
+    assert tschur.use_device_loop(asked, False)
+    with pytest.raises(ValueError, match="device_loop=True: keep_history"):
+        tschur.use_device_loop(asked, True)
+    with pytest.raises(ValueError, match="device_loop=True: the explicit dense S"):
+        tschur.use_device_loop(asked, False, pairs=object())
     got = tschur.solve_schur(to_port(_block()), tschur.SchurOptions(explicit_s=False),
                              keep_history=True, compute_covariance=False, device="cpu")
     assert got.x_history.shape[0] == got.iterations + 1
@@ -311,18 +314,19 @@ def test_dispatch_follows_the_jax_rule():
 
 def test_distributed_device_loop_two_ranks():
     """solve_schur_distributed at two gloo ranks under the device loop
-    (asked for: over several ranks the default is the host loop) and the
-    host loop, against the single-device device loop: the same iterations
-    and stop, x within atol 1e-8 (the order of the sums), and the device
+    (device_loop=None: the default at every rank count) and the host
+    loop, against the single-device device loop: the same iterations and
+    stop, x within atol 1e-8 (the order of the sums), and the device
     loop's x equal to the host loop's at the same ranks within 1e-12."""
     p = to_port(_block())
     cases = {name: ("solve", dict(mode="distributed", problem=p,
                                   opts=dict(explicit_s=False, device_loop=dl)))
-             for name, dl in (("device", True), ("host", False))}
+             for name, dl in (("device", None), ("host", False))}
     got = run_group(2, cases)
     one = tschur.solve_schur(p, tschur.SchurOptions(explicit_s=False), compute_covariance=False,
                              device="cpu")
     dev, host = got["device"], got["host"]
+    assert dev["driver"] == "device loop" and host["driver"] == "host loop"
     assert (dev["iterations"], dev["stopped_on"]) == (one.iterations, one.stopped_on)
     assert (host["iterations"], host["stopped_on"]) == (one.iterations, one.stopped_on)
     np.testing.assert_allclose(dev["x"], one.x, rtol=0, atol=1e-8)

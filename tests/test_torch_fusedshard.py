@@ -7,7 +7,9 @@ The windows' index and their plain K1/K2 outputs are checked here in one
 process (no collective is needed to sum them); the step and the solve run
 on one group of two gloo ranks (tests/_torch_dist_worker.py), the JAX
 side on two devices of the conftest's CPU mesh (its Pallas kernels in
-interpret mode, the host loop over its shard_map step)."""
+interpret mode, the host loop over its shard_map step).  The port's solve
+is its default call, the device loop (its eager body on gloo ranks), held
+also to the port's host loop."""
 
 import numpy as np
 import pytest
@@ -50,6 +52,7 @@ def ranks():
         "step": ("step", dict(mode="fused", problem=p, opts=OPTS, xs=[_x0()], lams=LAMS,
                               cg_tol=CG_TOL)),
         "solve": ("solve", dict(mode="fused", problem=p, opts=OPTS)),
+        "host": ("solve", dict(mode="fused", problem=p, opts=dict(OPTS, device_loop=False))),
     })
 
 
@@ -160,3 +163,20 @@ def test_solve_matches_jax(ranks):
     counts = got["counts"]
     assert counts["all_gather"]["calls"] == len(got["cg_iterations"]) + 1
     assert counts["reduce_scatter"]["calls"] == 0
+
+
+def test_default_solve_is_the_device_loop(ranks):
+    """At two ranks the default call (device_loop=None) takes the device
+    loop, as the JAX package's does: it matches the JAX solve (by
+    test_solve_matches_jax's bounds) and the port's host loop at the same
+    ranks within 1e-12, with the same iterations, CG counts and
+    collectives."""
+    _, want = _jax()
+    got, host = ranks["solve"], ranks["host"]
+    assert got["driver"] == "device loop" and host["driver"] == "host loop"
+    assert got["converged"] == want.converged
+    np.testing.assert_allclose(got["x"], want.x, rtol=1e-3, atol=2e-3)
+    np.testing.assert_allclose(got["x"], host["x"], rtol=0, atol=1e-12)
+    assert (got["iterations"], got["cg_iterations"]) == (host["iterations"],
+                                                         host["cg_iterations"])
+    assert got["counts"] == host["counts"]

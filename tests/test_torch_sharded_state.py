@@ -7,7 +7,9 @@ for the self-calibrating block with replicated points and an 11-image
 free network (11 images over 2 ranks: a padded image slot) with sharded
 points, and four ranks for the self-calibrating block with sharded
 points.  The JAX side runs here on as many devices of the conftest's CPU
-mesh, the host loop over its shard_map step (device_loop=False)."""
+mesh, the host loop over its shard_map step (device_loop=False).  The
+port's solves are its default call, the device loop (its eager body on
+gloo ranks), held also to the port's host loop at two ranks."""
 
 import numpy as np
 import pytest
@@ -61,6 +63,9 @@ def _port_cases(n):
                                                 point_mode=mode))
         out[f"solve:{case}"] = ("solve", dict(mode="sharded", problem=p, opts={},
                                               point_mode=mode))
+        if ranks == 2:
+            out[f"host:{case}"] = ("solve", dict(mode="sharded", problem=p,
+                                                 opts=dict(device_loop=False), point_mode=mode))
     return out
 
 
@@ -120,3 +125,21 @@ def test_solve_matches_jax(ranks, case):
     counts = got["counts"]
     assert counts["reduce_scatter"]["calls"] > 0
     assert counts["all_gather"]["calls"] > sum(got["cg_iterations"])
+
+
+@pytest.mark.parametrize("case", [c for c, v in CASES.items() if v[0] == 2])
+def test_default_solve_is_the_device_loop(ranks, case):
+    """At two ranks the default call (device_loop=None) takes the device
+    loop, as the JAX package's does: it matches the JAX solve (by
+    test_solve_matches_jax's bounds) and the port's host loop at the same
+    ranks within 1e-12, with the same iterations, CG counts and
+    collectives."""
+    _, want = _jax(case)
+    got, host = ranks[f"solve:{case}"], ranks[f"host:{case}"]
+    assert got["driver"] == "device loop" and host["driver"] == "host loop"
+    assert (got["iterations"], got["stopped_on"]) == (want.iterations, want.stopped_on)
+    np.testing.assert_allclose(got["x"], want.x, rtol=0, atol=X_ATOL)
+    np.testing.assert_allclose(got["x"], host["x"], rtol=0, atol=1e-12)
+    assert (got["iterations"], got["cg_iterations"]) == (host["iterations"],
+                                                         host["cg_iterations"])
+    assert got["counts"] == host["counts"]
