@@ -2,9 +2,11 @@
 1k-image self-calibrating bench block, beside the single-card solves they
 stand for.
 
-    python3 bench_torch_parallel.py [ranks] [posegraph] [order]   # from the repository root
+    python3 bench_torch_parallel.py [ranks] [order]   # from the repository root
 
-With no argument it runs ranks and posegraph.
+With no argument it runs ranks.  The pose graph's block solves over the
+cards (a spawned process a card) are bench_torch_posegraph.py's and
+chip_smoke.py phase 18's.
 
 - ranks: one NCCL rank a card, the mesh's collectives the peer kernels
   of ops/csrc/peercoll.cu.  The single-card references are chip_smoke.py's
@@ -23,14 +25,6 @@ With no argument it runs ranks and posegraph.
   tolerances (printed, not enforced: with several ranks the sums add in
   another order, which a CG cut at 40 iterations carries on), and each
   collective's time a call against NCCL's.
-- posegraph: the block solves of parallel/posegraph.solve_posegraph
-  (n_blocks=4) one after the other on cuda:0 (its default), then block i
-  on cuda:(i mod cards) still one after the other, then threaded over the
-  cards (a worker a card: parallel_blocks=True), then threaded with torch
-  on one CPU thread a worker: each block's card and wall, the block
-  stage's wall, and each block's x against the serial cuda:0 solve's
-  (which must agree within chip_smoke's float64 tolerance, and the
-  merged poses with them).
 - order (one card is enough): where fused_sharded's x over several ranks
   lands against one card's.  chip_smoke's phase-6 solve (float32 fused,
   5 GN iterations) on cuda:0, then solve_schur_fused_sharded at 2 and 4
@@ -47,14 +41,12 @@ Imports nothing of JAX.
 
 import dataclasses
 import sys
-import threading
 import time
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
-from fish_eye_bundle_adjustment_tpu_torch.parallel import posegraph
 from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import run_ranks
 from fish_eye_bundle_adjustment_tpu_torch.solver import schur
 
@@ -165,96 +157,16 @@ def run_order_part(p, dev, card):
         raise RuntimeError(f"[order] FAIL: x not finite at {failed}")
 
 
-def run_posegraph_part(p, card):
-    n = torch.cuda.device_count()
-    lock = threading.Lock()
-    subs = [posegraph.extract_block(p, part) for part in posegraph.partition_images(p, 4)]
-    kw = dict(keep_history=False, compute_covariance=False)
-    walls = []
-
-    def timed(problem, device, **kw):
-        t0 = time.perf_counter()
-        r = schur.solve_schur(problem, device=device, **kw)
-        torch.cuda.synchronize(device)
-        with lock:
-            walls.append((problem.n_img, str(device), time.perf_counter() - t0,
-                          r.iterations, r.converged))
-        return r
-
-    def a_card_a_block():
-        out = []
-        for i, sb in enumerate(subs):
-            dev = torch.device("cuda", i % n)
-            with torch.cuda.device(dev):
-                out.append(timed(sb.problem, device=dev, **kw))
-        return out
-
-    modes = (
-        ("serial on cuda:0", lambda: [timed(sb.problem, device=dev0, **kw) for sb in subs]),
-        ("a card a block, one after the other", a_card_a_block),
-        ("threaded, a worker a card (solve_posegraph's)",
-         lambda: posegraph._solve_blocks(subs, None, timed, True, torch.device("cuda"))),
-        ("threaded, torch on one thread a worker",
-         lambda: posegraph._solve_blocks(subs, None, one_thread, True, torch.device("cuda"))),
-    )
-    print(f"[posegraph] torch.get_num_threads() = {torch.get_num_threads()}")
-
-    def one_thread(problem, device, **kw):
-        torch.set_num_threads(1)
-        return timed(problem, device, **kw)
-    dev0 = torch.device("cuda", 0)
-    threads0 = torch.get_num_threads()
-    results, failed = {}, []
-    for what, run in modes:
-        walls.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            results[what] = run()
-        except Exception as e:  # noqa: BLE001 (the next mode still runs; fails below)
-            failed.append(what)
-            print(f"[posegraph] {what}: FAILED: {type(e).__name__}: {e}")
-            continue
-        wall = time.perf_counter() - t0
-        print(f"[posegraph] {what}: 4 block solves {wall:.2f} s over {n} card(s): "
-              + "; ".join(f"{ni} images on {d} {s:.2f} s {i} it"
-                          f"{'' if c else ' NOT converged'}" for ni, d, s, i, c in walls)
-              + f"; sum of block walls {sum(w[2] for w in walls):.2f} s [{card}]")
-        if not all(w[4] for w in walls):
-            failed.append(what)
-    ref = results.get(modes[0][0])
-    for what, res in results.items():
-        if res is ref or ref is None:
-            continue
-        worst = 0.0
-        for a, b in zip(res, ref):
-            tol = cs.X_TOL_F64
-            diff = np.abs(a.x - b.x)
-            worst = max(worst, float(np.max(diff / (tol["atol"] + tol["rtol"] * np.abs(b.x)))))
-        eop = posegraph.merge_blocks(p, subs, res)[0]
-        deop = np.abs(eop - posegraph.merge_blocks(p, subs, ref)[0]).max()
-        print(f"[posegraph] {what} against serial on cuda:0: blocks' x tolerance use "
-              f"{worst:.3f} (rtol {cs.X_TOL_F64['rtol']:g}, atol {cs.X_TOL_F64['atol']:g}); "
-              f"merged poses max |d eop| {deop:.3e}")
-        if worst > 1.0 or deop > 1e-6:
-            failed.append(what)
-    torch.set_num_threads(threads0)
-    if failed:
-        raise RuntimeError(f"[posegraph] FAIL: {failed}")
-
-
 def main():
-    parts = sys.argv[1:] or ["ranks", "posegraph"]
-    if set(parts) - {"ranks", "posegraph", "order"}:
-        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [posegraph] [order]")
+    parts = sys.argv[1:] or ["ranks"]
+    if set(parts) - {"ranks", "order"}:
+        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [order]")
     card = cs.phase_environment()
     dev = torch.device("cuda")
     cs.phase_build()
     p, layout, opts, plan = cs.phase_block()
     if "ranks" in parts:
         run_ranks_part(p, layout, plan, dev, card)
-    if "posegraph" in parts:
-        run_posegraph_part(p, card)
     if "order" in parts:
         run_order_part(p, dev, card)
 

@@ -13,8 +13,9 @@ bench_torch_pallas_onehot.py) at those scripts' sizes; then the dense
 CLI, the default solve_schur (the explicit dense S and the stds), the
 stds at the bench block, the distributed solvers of parallel/ on an NCCL
 group, the device loop (the step as a CUDA graph), the pose-graph merge
-and the mesh's collectives as peer-memory kernels at two ranks.  Imports
-nothing of JAX.  Phases:
+(its blocks a process a card over several cards), the mesh's collectives
+as peer-memory kernels at two ranks, and BASELINE configs[5]'s
+10k-image block.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
@@ -194,11 +195,21 @@ nothing of JAX.  Phases:
                    convergence by bench.py's definition (L1 <= 3e-4 u, at
                    most 60 iterations, 40 CG iterations to 1e-6): the
                    time to a converged solve, sigma0^2 in (0.8, 1.2)
- 18. posegraph     solve_posegraph(bench block, n_blocks=4, refine=True):
-                   block walls and iterations (each converged), edges (>= 3),
-                   the merge's host ms, the refine's iterations and driver
-                   (the device loop), its tie coordinates within 1e-5 and
-                   rms within 1e-6 relative of a direct solve; then
+ 18. posegraph     solve_posegraph(bench block, n_blocks=4, refine=True) at
+                   its default: over several cards a spawned process a card
+                   (each process's start-up seconds), at one card the
+                   blocks one after the other: block walls (each
+                   DenseResult's elapsed_s) and iterations (each
+                   converged), edges (>= 3), the stages' host seconds (the
+                   merge's ms; the merge run again gives the same poses),
+                   the refine's iterations and driver (the
+                   device loop), its tie coordinates within 1e-5 and rms
+                   within 1e-6 relative of a direct solve; the launch
+                   counters after it equal to the blocks' (counted in their
+                   processes) + the refine's loop (warm-up + replays) + its
+                   stds (run again); over several cards each block's x
+                   bitwise, and its launches equal, to the same block
+                   solved on cuda:0 in this process; then
                    cli.main(<phase 13's dataset, copied>, solver="posegraph",
                    blocks=2): rc 0, the three reports, sigma0^2 in [0.9, 1.1]
  19. peer coll.    two spawned ranks on cuda:0 over a gloo group (NCCL
@@ -218,6 +229,19 @@ nothing of JAX.  Phases:
                    processes time-slice the card: no cross-card time),
                    the bound
 
+ 20. tenk          BASELINE configs[5]'s 10k-image block at its full size
+                   (bench_tenk.py's make_block: 10,000 images, 1,000,000
+                   points, seed 13): its observations (11,105,599) and band
+                   plan (W 640, T 1792, G 7802, n_pad 11,106,048) equal to
+                   the JAX package's (TENK_r05.json); K1 and K2 in the CG
+                   matvec's mode at its shapes by phase 4's checks, times
+                   and bounds; then solve_schur(float32, cg_maxiter=40) for
+                   TENK_STEPS = 3 GN iterations (depth cut) under the device
+                   loop: replay ms, capture seconds, peak memory, launches
+                   warm-up + replays (K1 1 + steps, K2 by phase 17's
+                   formula), sigma0^2 finite and falling (weighted SSR over
+                   n - u at x0 and after)
+
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
 any result.  The last three lines: the card's name and power limit, the
@@ -236,7 +260,9 @@ the explicit S's pair products and tie IOP sums (phase 14), K1, K2
 and the span segment sum on the estimator's path (phase 15), and K1, K2
 and K4 on the distributed paths (phase 16), K1, K2 and K4 under the
 device loop (phase 17: launches are the warm-up's plus those the
-replays ran, counted on the card), and the three peer collectives (phase 19's solves' launches,
+replays ran, counted on the card), K1 and K2 at the 10k-image block's
+shapes (phase 20: its solve's launches), and the three peer
+collectives (phase 19's solves' launches,
 with phase 16's over several cards; times of phase 16 over several
 cards, with NCCL's as the library time, else of phase 19, with gloo's
 where it has the op for CUDA tensors and the reason in `library` where
@@ -280,6 +306,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver import (
     covariance, dense, device_loop, explicit, schur,
 )
 from fish_eye_bundle_adjustment_tpu_torch.synth import make_block, write_block
+from fish_eye_bundle_adjustment_tpu_torch.utils import cudatime
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import (
     HBM_BYTES_PER_S, Probe, bound, cuda_ms, line, measure, rel_norm,
 )
@@ -334,8 +361,7 @@ def phase_environment():
           f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("[1 env] FAIL: torch.cuda.is_available() is false")
-    card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"])
+    card = cudatime.card()
     print(f"[1 env] nvidia-smi: {card}")
     print(f"[1 env] nvcc: {_run([_build._nvcc(), '--version']).splitlines()[-1]}")
     print(f"[1 env] device 0: {torch.cuda.get_device_name(0)}, "
@@ -410,60 +436,77 @@ def phase_kernels(p, layout, opts, plan, dev):
     # shared memory and resident CTAs per SM of each group kernel here and at
     # the band plan's caps, with the arguments its wrapper passes (matvec and
     # back-substitution: vpose)
-    lib = _build.load()
     caps = inspect.signature(build_band_plan).parameters
-    cap_T, cap_W = caps["max_T"].default, caps["max_W"].default
-    for T, M, W, where in ((band.T, band.M, band.W, "here"),
-                           (cap_T, caps["M"].default, cap_W, "at the caps")):
-        for which, label, smem in (
-                (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(T, M)),
-                (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
-                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 1, 0, _build.SMEM_LIMIT)),
-                (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
-                 lib.fusedmv_schur_smem_bytes(T, M, W, ne, 0, 1, _build.SMEM_LIMIT))):
-            occ = lib.fusedmv_occupancy(which, smem)
-            print(f"[4 kernels] {label} {where}: {smem} bytes of dynamic shared memory "
-                  f"at T={T}, M={M}, W={W}, ne={ne}, {occ} resident CTAs of 256 threads "
-                  f"per SM")
-            if not (smem <= _build.SMEM_LIMIT and occ >= 1):
-                raise RuntimeError(f"[4 kernels] FAIL: {label} does not fit {where}")
+    _print_smem("4 kernels", band.T, band.M, band.W, ne, "here")
+    _print_smem("4 kernels", caps["max_T"].default, caps["M"].default, caps["max_W"].default,
+                ne, "at the caps")
     idx_b = bench_torch_fusedmv.index_bytes(band)
     print(f"[4 kernels] the kernels' host index: {idx_b} bytes on the card, read beside "
           f"the function's inputs and not counted in its bound "
           f"({idx_b / HBM_BYTES_PER_S * 1e3:.4f} ms at the bound's memory rate)")
 
-    results = {}
     cases = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs)
-    for name, (kind, kernel, plain, extra) in cases.items():
-        got, again, want = kernel(), kernel(), plain()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise RuntimeError(f"[4 kernels] FAIL: {name} is not bitwise repeatable")
-        g = bench_torch_fusedmv.glue_reads(got, plan, ne, ni, kind)
-        w = bench_torch_fusedmv.glue_reads(want, plan, ne, ni, kind)
-        errs = {}
-        max_abs = 0.0
-        for key in w:
-            d = (g[key].double() - w[key].double())
-            errs[key] = float(d.norm() / w[key].double().norm().clamp_min(1e-30))
-            max_abs = max(max_abs, float(d.abs().max()))
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        print(f"[4 kernels] {name}: rel err "
-              + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-              + f" max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.3f} ms"
-              f" plain {plain_ms:.3f} ms")
-        bad = {k: v for k, v in errs.items() if not v <= KERNEL_TOL}
-        if bad:
-            raise RuntimeError(f"[4 kernels] FAIL: {name} off its plain version: {bad}")
-        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-        results[name]["bound_ms"], results[name]["bound_by"] = bound(
-            (*streams, *band_in, *extra, *got), flops[name], torch.float32)
-        group, reduce = bench_torch_fusedmv.group_reduce_split(
-            bench_torch_fusedmv.split_ms(kernel))
-        print(f"[4 kernels] {name}: bound {results[name]['bound_ms']:.4f} ms "
-              f"({results[name]['bound_by']}; kernel {ms / results[name]['bound_ms']:.2f}x); "
-              f"on the device: group kernel {group:.4f} ms + reduce {reduce:.4f} ms")
-    return results
+    return {name: _check_fused("4 kernels", name, case, plan, ne, ni, streams + band_in,
+                               flops[name])
+            for name, case in cases.items()}
+
+
+def _print_smem(tag, T, M, W, ne, where):
+    """Each fused group kernel's dynamic shared memory and resident CTAs
+    per SM at (T, M, W), with the arguments its wrapper passes (matvec and
+    back-substitution: vpose); fail where one does not fit."""
+    lib = _build.load()
+    for which, label, smem in (
+            (0, "K1 hpp_group_kernel", lib.fusedmv_hpp_smem_bytes(T, M)),
+            (1, "K2 schur_group_kernel<false> (matvec, back-substitution)",
+             lib.fusedmv_schur_smem_bytes(T, M, W, ne, 1, 0, _build.SMEM_LIMIT)),
+            (2, "K2 schur_group_kernel<true> (rhs + preconditioner)",
+             lib.fusedmv_schur_smem_bytes(T, M, W, ne, 0, 1, _build.SMEM_LIMIT))):
+        occ = lib.fusedmv_occupancy(which, smem)
+        print(f"[{tag}] {label} {where}: {smem} bytes of dynamic shared memory "
+              f"at T={T}, M={M}, W={W}, ne={ne}, {occ} resident CTAs of 256 threads "
+              f"per SM")
+        if not (smem <= _build.SMEM_LIMIT and occ >= 1):
+            raise RuntimeError(f"[{tag}] FAIL: {label} does not fit {where}")
+
+
+def _check_fused(tag, name, case, plan, ne, ni, inputs, flops):
+    """One K1 or K2 case of bench_torch_fusedmv.kernel_cases against its
+    plain version: relative norm error <= KERNEL_TOL on every output the
+    solver reads, bitwise repeatable; median times of kernel and plain
+    version, the bound (`inputs`: the streams and the plan's arrays, with
+    the case's own inputs and outputs), the group kernel's and the
+    reduce's device times.  Returns the kernel table's numbers."""
+    kind, kernel, plain, extra = case
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"[{tag}] FAIL: {name} is not bitwise repeatable")
+    g = bench_torch_fusedmv.glue_reads(got, plan, ne, ni, kind)
+    w = bench_torch_fusedmv.glue_reads(want, plan, ne, ni, kind)
+    errs = {}
+    max_abs = 0.0
+    for key in w:
+        d = (g[key].double() - w[key].double())
+        errs[key] = float(d.norm() / w[key].double().norm().clamp_min(1e-30))
+        max_abs = max(max_abs, float(d.abs().max()))
+    del want, w, d
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    print(f"[{tag}] {name}: rel err "
+          + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+          + f" max_abs={max_abs:.3e} bitwise-repeatable kernel {ms:.3f} ms"
+          f" plain {plain_ms:.3f} ms")
+    bad = {k: v for k, v in errs.items() if not v <= KERNEL_TOL}
+    if bad:
+        raise RuntimeError(f"[{tag}] FAIL: {name} off its plain version: {bad}")
+    out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    out["bound_ms"], out["bound_by"] = bound((*inputs, *extra, *got), flops, torch.float32)
+    group, reduce = bench_torch_fusedmv.group_reduce_split(
+        bench_torch_fusedmv.split_ms(kernel))
+    print(f"[{tag}] {name}: bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}; kernel {ms / out['bound_ms']:.2f}x); "
+          f"on the device: group kernel {group:.4f} ms + reduce {reduce:.4f} ms")
+    return out
 
 
 def phase_reference(dev):
@@ -2120,40 +2163,62 @@ def phase_device_loop(p, layout, res6, res9, dev, card):
 
 
 def phase_posegraph(p, dev, card):
-    """solve_posegraph on the bench block (4 blocks, the refine), against a
-    direct solve; then the CLI's posegraph on phase 13's dataset."""
+    """solve_posegraph on the bench block (4 blocks, the refine) at its
+    default: over several cards a spawned process a card, the blocks' x
+    bitwise the same blocks solved one after the other on cuda:0; at one
+    card the blocks one after the other.  The launch counters after it:
+    the blocks' plus the refine's.  Against a direct solve; then the
+    CLI's posegraph on phase 13's dataset."""
     from fish_eye_bundle_adjustment_tpu_torch.parallel import posegraph
 
     tag = "18 posegraph"
-    walls = []
-
-    def timed_block(problem, **kw):
-        t0 = time.perf_counter()
-        r = schur.solve_schur(problem, **kw)
-        torch.cuda.synchronize()
-        walls.append((problem.n_img, time.perf_counter() - t0, r.iterations, r.converged))
-        return r
-
     torch.cuda.synchronize()
+    _reset_counts()
+    schur.reset_cg_counts()
     t0 = time.perf_counter()
-    pg = posegraph.solve_posegraph(p, n_blocks=4, refine=True, block_solver=timed_block)
+    pg = posegraph.solve_posegraph(p, n_blocks=4, refine=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches, plain = _read_counts()
+    ran = {k: v for k, v in launches.items() if v}
     lc = dict(device_loop.loop_counts)
+    runs, ref, st = pg.block_runs, pg.refined, pg.stage_s
     subs = [posegraph.extract_block(p, part) for part in posegraph.partition_images(p, 4)]
-    t0 = time.perf_counter()
-    eop, _, edges = posegraph.merge_blocks(p, subs, pg.block_results)
-    merge_ms = (time.perf_counter() - t0) * 1e3
-    ref = pg.refined
-    print(f"[{tag}] solve_posegraph(n_blocks=4, refine=True): wall {wall:.2f} s; blocks "
-          + "; ".join(f"{n} images {s:.2f} s {i} it{'' if c else ' NOT converged'}"
-                      for n, s, i, c in walls)
-          + f"; {len(edges)} edges; merge {merge_ms:.1f} ms (host) [{card}]")
+    eop = posegraph.merge_blocks(p, subs, pg.block_results)[0]
+    print(f"[{tag}] solve_posegraph(n_blocks=4, refine=True) over "
+          f"{torch.cuda.device_count()} card(s): wall {wall:.2f} s (partition "
+          f"{st['partition']:.2f} s, blocks {st['blocks']:.2f} s, merge "
+          f"{st['merge'] * 1e3:.1f} ms on the host, refine {st['refine']:.2f} s); blocks "
+          + "; ".join(f"{r.problem.n_img} images on {d} {r.elapsed_s:.2f} s {r.iterations} it"
+                      f"{'' if r.converged else ' NOT converged'}"
+                      for r, d in zip(pg.block_results, runs.devices))
+          + f"; {len(pg.edges)} edges [{card}]")
+    if runs.startup_s:
+        print(f"[{tag}] the block processes' start-up (spawn to ready: torch imported, "
+              f"CUDA context, kernel library loaded): "
+              f"{', '.join(f'{s:.2f}' for s in runs.startup_s)} s")
     print(f"[{tag}] refine: {ref.iterations} iterations ({ref.stopped_on}), driver "
           f"{'device loop (CUDA graph)' if lc.get('graph') else 'host loop'}, capture "
           f"{lc.get('capture_s', 0.0):.2f} s, {lc.get('steps')} steps, cg per step "
           f"{ref.cg_iterations}, GN loop {ref.elapsed_s:.2f} s, sigma0^2 {ref.sigma02:.9f}, "
           f"stds {ref.std_method} [{card}]")
+    # the launches: each block's (moved in its process and added here), the
+    # refine's device loop (warm-up + replays) and its stds (run again here)
+    blocks = [_body_launches(m) for m in runs.moves]
+    refine = _body_launches(lc.get("warmup", {}))
+    for k, n in _kernels(lc.get("replayed", {})).items():
+        refine[k] = refine.get(k, 0) + n
+    _reset_counts()
+    covariance.compute_stds(p, ref.layout, ref.x, ref.sigma02, device=dev)
+    stds = {k: v for k, v in _read_counts()[0].items() if v}
+    want = {}
+    for part in (*blocks, refine, stds):
+        for k, n in part.items():
+            want[k] = want.get(k, 0) + n
+    print(f"[{tag}] launches {ran} = the blocks' {blocks} + the refine's loop {refine} "
+          f"+ its stds {stds}; plain versions {plain}")
+    if ran != want or plain:
+        raise RuntimeError(f"[{tag}] FAIL: launches {ran}, want {want}; plain {plain}")
     t0 = time.perf_counter()
     direct = schur.solve_schur(p, compute_covariance=False, device=dev)
     direct_s = time.perf_counter() - t0
@@ -2161,11 +2226,25 @@ def phase_posegraph(p, dev, card):
     print(f"[{tag}] direct solve (float64, device loop): {direct.iterations} iterations "
           f"({direct.stopped_on}) in {direct_s:.2f} s; the refine's tie coordinates within "
           f"{ties.max():.3e} of it (limit 1e-5), rms {ref.rms:.9f} vs {direct.rms:.9f} [{card}]")
-    if not (all(c for _, _, _, c in walls) and len(edges) >= 3 and ref.converged
-            and np.array_equal(eop, pg.eop) and lc.get("graph") and ties.max() <= 1e-5
+    if not (all(r.converged for r in pg.block_results) and len(pg.edges) >= 3
+            and np.array_equal(eop, pg.eop)
+            and ref.converged and lc.get("graph") and ties.max() <= 1e-5
             and abs(ref.rms - direct.rms) <= 1e-6 * direct.rms
             and ref.std is not None and np.isfinite(ref.std).all()):
         raise RuntimeError(f"[{tag}] FAIL: the pose graph or its refine")
+    if len(set(runs.devices)) > 1:
+        # the same blocks one after the other on cuda:0, in this process
+        serial, sruns = posegraph._solve_blocks(subs, None, schur.solve_schur,
+                                                [torch.device("cuda", 0)])
+        for i, (a, b) in enumerate(zip(pg.block_results, serial)):
+            same = np.array_equal(a.x, b.x)
+            print(f"[{tag}] block {i} on {runs.devices[i]} against cuda:0 in this process: x "
+                  + ("bitwise equal" if same else
+                     f"differs by {np.abs(a.x - b.x).max():.3e}")
+                  + f"; {a.iterations} / {b.iterations} iterations; launches "
+                  f"{blocks[i]} / {_body_launches(sruns.moves[i])}")
+            if not (same and blocks[i] == _body_launches(sruns.moves[i])):
+                raise RuntimeError(f"[{tag}] FAIL: block {i} differs across processes")
 
     # the CLI's posegraph on a copy of phase 13's dataset
     src = Path("chiprun_out") / "smoke_dense_cli" / "ds"
@@ -2188,6 +2267,111 @@ def phase_posegraph(p, dev, card):
           f"sigma0^2 {s02:.6f}, wrote {[w.name for w in written if w.exists()]} [{card}]")
     if rc != 0 or not all(w.exists() for w in written) or not 0.9 <= s02 <= 1.1:
         raise RuntimeError(f"[{tag}] FAIL: the posegraph CLI:\n{out.getvalue()[-2000:]}")
+
+
+# BASELINE configs[5]: bench_tenk.py's block, and the JAX package's band plan
+# of it and its observations (TENK_r05.json)
+TENK_BLOCK = dict(n_img=10_000, n_pts=1_000_000, model="fisheye", seed=13, control_frac=0.01,
+                  settings_overrides={"inner_constraints": False, "iteration_cap": 60})
+TENK_N_OBS = 11_105_599
+TENK_PLAN = dict(W=640, T=1792, G=7802, n_pad=11_106_048)
+TENK_STEPS = 3
+
+
+def phase_tenk(dev, card):
+    """BASELINE configs[5]'s 10k-image block at its full size: the band
+    plan against the JAX package's, K1 and K2 (matvec) at its shapes, then
+    TENK_STEPS GN iterations of the fused float32 solve at 40 CG under the
+    device loop.  Returns the kernel table's numbers and the solve's
+    launches."""
+    tag = "20 tenk"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = make_block(**TENK_BLOCK).problem
+    layout = ParamLayout(p)
+    build_s = time.perf_counter() - t0
+    opts = schur.SchurOptions(dtype=np.float32, cg_maxiter=40)
+    t0 = time.perf_counter()
+    plan = schur.make_band_plan(p, layout, opts)
+    plan_s = time.perf_counter() - t0
+    if plan is None:
+        raise RuntimeError(f"[{tag}] FAIL: no band plan")
+    got = {k: getattr(plan, k) for k in TENK_PLAN}
+    print(f"[{tag}] make_block(10,000 images, 1,000,000 points, seed 13): {build_s:.1f} s on the "
+          f"host; n_obs={p.n_obs} u={layout.u} n_tie={p.n_tie}; band plan {got} M={plan.M} "
+          f"read amplification {plan.read_amplification:.3f} ({plan_s:.1f} s on the host); "
+          f"TENK_r05.json: n_obs={TENK_N_OBS} {TENK_PLAN}")
+    if p.n_obs != TENK_N_OBS or got != TENK_PLAN:
+        raise RuntimeError(f"[{tag}] FAIL: the block or its band plan differs from the JAX "
+                           f"package's")
+
+    # K1 and K2 in matvec mode (the CG matvec's precision at this u) at these shapes
+    t0 = time.perf_counter()
+    kern = schur.SchurKernel(layout, opts)
+    obs = schur.ObsData.from_problem(p, layout, plan, dtype=np.float32, device=dev)
+    print(f"[{tag}] ObsData.from_problem (band plan, streams, the kernels' host index): "
+          f"{time.perf_counter() - t0:.1f} s")
+    x0 = torch.as_tensor(layout.initial().astype(np.float32), device=dev)
+    fac = kern.linearize(x0 * layout.scale_like(x0), obs, lam=torch.zeros((), device=dev))
+    band, ne, ni = obs.band, kern.ne, kern.ni
+    _print_smem(tag, band.T, band.M, band.W, ne, "here")
+    rng = np.random.default_rng(0)
+    rnd = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+    inputs = dict(vpose=rnd(8, band.n_img_pad), vi=rnd(128), a_rows=rnd(8, band.n_pad))
+    cases = bench_torch_fusedmv.kernel_cases(fusedmv, band, fac, ne, ni, inputs)
+    flops = bench_torch_fusedmv.kernel_flops(p.n_obs, plan.n_tie, ne, ni)
+    inp = (fac.acam_t, fac.apt_t) + bench_torch_fusedmv.band_inputs(band)
+    matvec = "fused_schur_apply/" + ("matvec_bf16" if kern.mv_precision == "bf16" else "matvec")
+    print(f"[{tag}] the CG matvec's precision at u={layout.u}: {kern.mv_precision}")
+    rows = {name: _check_fused(tag, name, cases[name], plan, ne, ni, inp, flops[name])
+            for name in ("fused_hpp_pass", matvec)}
+    del fac, cases, inputs, inp
+    torch.cuda.empty_cache()
+
+    def cost(x):
+        x = torch.as_tensor(x.astype(np.float32), device=dev)
+        return float(kern.residual_cost(x * layout.scale_like(x), obs))
+
+    dof = p.n - layout.u
+    c0 = cost(layout.initial())
+
+    problem = dataclasses.replace(
+        p, settings=dataclasses.replace(p.settings, iteration_cap=TENK_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    schur.reset_cg_counts()
+    t0 = time.perf_counter()
+    res = schur.solve_schur(problem, opts, compute_covariance=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, plain = _read_counts()
+    ran = {k: v for k, v in launches.items() if v}
+    lc = dict(device_loop.loop_counts)
+    warm = _body_launches(lc.get("warmup", {}))
+    replayed = _loop_launches(True, res.cg_iterations, opts.cg_maxiter)
+    want = {k: warm.get(k, 0) + n for k, n in replayed.items()}
+    steps = lc.get("steps", 0)
+    c1 = cost(res.x)
+    print(f"[{tag}] solve_schur(float32, cg_maxiter=40, {TENK_STEPS} iterations): "
+          f"{res.iterations} iterations ({res.stopped_on}), {steps} steps, cg per step "
+          f"{res.cg_iterations}, wall {wall:.2f} s (with the host's band plan and streams), "
+          f"capture {lc.get('capture_s', 0.0):.2f} s, {lc.get('loop_s', 0.0) / max(steps, 1) * 1e3:.1f} "
+          f"ms a replay (chunk loop {lc.get('loop_s', 0.0) * 1e3:.1f} ms), graph pools "
+          f"+{lc.get('capture_reserved_bytes', 0) / 2**30:.2f} GiB reserved, peak mem "
+          f"{peak:.2f} GiB [{card}]")
+    print(f"[{tag}] sigma0^2 {c0 / dof:.6g} at x0 -> {c1 / dof:.6g} after {res.iterations} "
+          f"iterations (weighted SSR / (n - u), n - u = {dof}); the solve's sigma0^2 "
+          f"{res.sigma02:.6g}")
+    print(f"[{tag}] launches {ran} = warm-up {warm} + replays {_kernels(lc.get('replayed', {}))} "
+          f"(want {replayed} from the CG counts); plain versions {plain}")
+    if not (lc.get("graph") and res.iterations == TENK_STEPS and np.isfinite(res.x).all()
+            and np.isfinite(res.sigma02) and np.isfinite(c1) and c1 < c0):
+        raise RuntimeError(f"[{tag}] FAIL: the solve, or sigma0^2 did not fall")
+    if ran != want or plain:
+        raise RuntimeError(f"[{tag}] FAIL: launches {ran}, want {want}; plain {plain}")
+    return rows, ran
 
 
 def main():
@@ -2231,6 +2415,9 @@ def main():
     t0 = time.perf_counter()
     peer_coll, peer_launches = phase_peer(p, stds_p, card)
     print(f"[19 peer collectives] phase 19 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tenk_rows, tenk_launches = phase_tenk(dev, card)
+    print(f"[20 tenk] phase 20 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);
@@ -2333,6 +2520,17 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in coll + peer_coll if c["op"] == op),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], library=r["library"],
+        ))
+    # K1 and K2 on BASELINE configs[5]'s 10k-image block (phase 20): times,
+    # bound and error at its shapes (K2 in the CG matvec's mode), launches of
+    # its solve
+    for name, r in tenk_rows.items():
+        kernel = name.split("/")[0]
+        table.append(dict(
+            name=f"{kernel}/tenk", route="cuda", source=SOURCES[kernel],
+            replaces=[REPLACES[kernel]], launches=tenk_launches[kernel],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         ))
     for probe, r in measured:
         table.append(dict(

@@ -20,9 +20,9 @@ parallel/ over `--devices` ranks (default: every visible card): started
 plainly the CLI spawns them, rank r on cuda:r over NCCL (or, with --cpu,
 gloo ranks on the CPU); started under torchrun (WORLD_SIZE set) it is one
 of them.  Rank 0 prints and writes the reports.  `posegraph` partitions
-the images into `--blocks` blocks, solves each (one worker thread per
-card), merges them by a similarity pose graph and refines the merged
-estimate with the Schur solver (parallel/posegraph.py).
+the images into `--blocks` blocks, solves each (over several cards one
+spawned process a card), merges them by a similarity pose graph and
+refines the merged estimate with the Schur solver (parallel/posegraph.py).
 """
 
 from __future__ import annotations

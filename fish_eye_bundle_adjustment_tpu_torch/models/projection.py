@@ -68,8 +68,9 @@ JACOBIAN_CHUNK = 1 << 21
 # torch/_functorch/eager_transforms.py), so a second thread inside jacfwd
 # opens none, and its tangents vanish when the first thread's level closes
 # (zero Jacobian columns on the card; a RuntimeError naming the level at
-# times).  Solves in threads (the pose graph's block solves, a card each)
-# take this lock for their Jacobian passes.
+# times).  The port runs no solves in threads (the pose graph's blocks run
+# a process a card), but a caller's threads may: every Jacobian pass takes
+# this lock.
 _FORWARD_MODE = threading.Lock()
 
 

@@ -24,13 +24,16 @@ the CPU gloo's.  NCCL (gloo on the CPU) also carries what is not in a
 step: the group's start, barriers and the peer handles' exchange.
 
 `run_ranks` starts the ranks of one run as processes (spawned, so they
-import this package and torch only) and returns rank 0's result.
+import this package and torch only) and returns rank 0's result;
+`spawn_each` is its process pool, which the pose graph's block solves
+take without a process group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import multiprocessing
 import os
 import pickle
 import socket
@@ -208,50 +211,41 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, n, coordinator, device, fn, args, out_dir, timeout_s):
-    """One rank: join the group, run fn(mesh, *args), leave.  Rank 0
-    writes the result, a failing rank its traceback, into out_dir."""
-    torch.set_num_threads(1)
+def _process_main(index, fn, out_dir, threads):
+    """One spawned process: fn(*args) with torch on `threads` threads, its
+    args read from out_dir; its result, or its traceback, into out_dir."""
+    torch.set_num_threads(threads)
     try:
-        dev = "cpu" if str(device) == "cpu" else f"cuda:{rank}"
-        init_distributed(coordinator, n, rank, dev, timeout_s=timeout_s)
-        result = fn(make_mesh(), *args)
-        if rank == 0:
-            with open(Path(out_dir) / "result.pkl", "wb") as f:
-                pickle.dump(result, f)
-        shutdown()
+        with open(Path(out_dir) / f"args{index}.pkl", "rb") as f:
+            args = pickle.load(f)
+        result = fn(*args)
+        with open(Path(out_dir) / f"result{index}.pkl", "wb") as f:
+            pickle.dump(result, f)
     except BaseException:
-        (Path(out_dir) / f"error{rank}.txt").write_text(traceback.format_exc())
+        (Path(out_dir) / f"error{index}.txt").write_text(traceback.format_exc())
         raise SystemExit(1)
 
 
-def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEOUT_S,
-              collective_timeout_s: Optional[float] = None):
-    """Run fn(mesh, *args) on `n` ranks, each a spawned process: rank r on
-    cuda:r over NCCL (device None or "cuda"; without a card it raises), or
-    on the CPU over gloo when asked (device "cpu").  `fn` must be a
-    module-level function, and what it returns picklable.  Returns rank
-    0's result.  A failing rank fails the run with its traceback; past
-    `timeout_s` every rank is stopped and the run raises TimeoutError.
-    Each rank runs torch on one thread."""
-    import multiprocessing as mp
-
-    from fish_eye_bundle_adjustment_tpu_torch.solver.dense import resolve_device
-
-    device = resolve_device(device, "run_ranks")
-    if device.type != "cpu":
-        have = torch.cuda.device_count()
-        if n > have:
-            raise ValueError(f"run_ranks: {n} ranks need {n} CUDA devices; {have} visible")
-    ctx = mp.get_context("spawn")
-    coll_s = collective_timeout_s or timeout_s
+def spawn_each(fn, arg_lists, timeout_s: float = DEFAULT_TIMEOUT_S, threads: int = 1,
+               what: str = "spawn_each"):
+    """fn(*args) for each `args` of `arg_lists`, each in a process of its
+    own, all started together (spawned: they import this package and torch
+    only); their results in order.  `fn` must be a module-level function,
+    its arguments and result picklable.  A failing process fails the call
+    with its traceback (RuntimeError, every process stopped); past
+    `timeout_s` every process is stopped and the call raises TimeoutError.
+    Each process runs torch on `threads` threads; `what` names the caller
+    in the errors.  The arguments go through files: a spawned process
+    reads what its start() sends only once it has imported the caller's
+    main module, so large arguments sent that way would start the
+    processes one after the other."""
+    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as out_dir:
-        # the ranks meet at a file of the run's own directory: no port to
-        # pick, which another process could take before rank 0 listens
-        coordinator = f"file://{Path(out_dir) / 'rendezvous'}"
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, n, coordinator, device, fn, args, out_dir, coll_s))
-                 for r in range(n)]
+        for i, args in enumerate(arg_lists):
+            with open(Path(out_dir) / f"args{i}.pkl", "wb") as f:
+                pickle.dump(args, f)
+        procs = [ctx.Process(target=_process_main, args=(i, fn, out_dir, threads))
+                 for i in range(len(arg_lists))]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout_s
@@ -272,12 +266,52 @@ def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEO
                     p.join()
         errors = sorted(Path(out_dir).glob("error*.txt"))
         if errors:
-            raise RuntimeError("a rank failed:\n" + "\n".join(e.read_text() for e in errors))
-        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+            raise RuntimeError(f"{what}: a process failed:\n"
+                               + "\n".join(e.read_text() for e in errors))
+        bad = [i for i, p in enumerate(procs) if p.exitcode != 0]
         if bad:
             if time.monotonic() > deadline:
-                raise TimeoutError(f"run_ranks: ranks {bad} still running after {timeout_s} s")
-            raise RuntimeError(f"run_ranks: ranks {bad} exited with "
-                               f"{[procs[r].exitcode for r in bad]}")
-        with open(Path(out_dir) / "result.pkl", "rb") as f:
-            return pickle.load(f)
+                raise TimeoutError(f"{what}: processes {bad} still running after {timeout_s} s")
+            raise RuntimeError(f"{what}: processes {bad} exited with "
+                               f"{[procs[i].exitcode for i in bad]}")
+        out = []
+        for i in range(len(procs)):
+            with open(Path(out_dir) / f"result{i}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _rank_main(rank, n, coordinator, device, fn, args, timeout_s):
+    """One rank: join the group, run fn(mesh, *args), leave; rank 0's
+    result (the others return None)."""
+    dev = "cpu" if str(device) == "cpu" else f"cuda:{rank}"
+    init_distributed(coordinator, n, rank, dev, timeout_s=timeout_s)
+    result = fn(make_mesh(), *args)
+    shutdown()
+    return result if rank == 0 else None
+
+
+def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEOUT_S,
+              collective_timeout_s: Optional[float] = None):
+    """Run fn(mesh, *args) on `n` ranks, each a spawned process
+    (spawn_each): rank r on cuda:r over NCCL (device None or "cuda";
+    without a card it raises), or on the CPU over gloo when asked (device
+    "cpu").  `fn` must be a module-level function, and what it returns
+    picklable.  Returns rank 0's result.  A failing rank fails the run with
+    its traceback; past `timeout_s` every rank is stopped and the run
+    raises TimeoutError.  Each rank runs torch on one thread."""
+    from fish_eye_bundle_adjustment_tpu_torch.solver.dense import resolve_device
+
+    device = resolve_device(device, "run_ranks")
+    if device.type != "cpu":
+        have = torch.cuda.device_count()
+        if n > have:
+            raise ValueError(f"run_ranks: {n} ranks need {n} CUDA devices; {have} visible")
+    coll_s = collective_timeout_s or timeout_s
+    with tempfile.TemporaryDirectory() as meet:
+        # the ranks meet at a file of the run's own directory: no port to
+        # pick, which another process could take before rank 0 listens
+        coordinator = f"file://{Path(meet) / 'rendezvous'}"
+        return spawn_each(_rank_main, [(r, n, coordinator, device, fn, args, coll_s)
+                                       for r in range(n)],
+                          timeout_s, threads=1, what="run_ranks")[0]

@@ -9,8 +9,9 @@ across devices with a pose-graph layer merging the blocks:
    blocks are estimated independently in each (the overlap that glues the
    graph together).
 2. **Block solve**: each block runs the Schur solver as a free network
-   (per-block inner-constraints datum), one after the other, or one
-   worker thread a card when asked (solve_posegraph's parallel_blocks).
+   (per-block inner-constraints datum): over several cards one spawned
+   process a card, as the JAX package pins a block to each device; on one
+   card one after the other.
 3. **Pose-graph merge**: each block's solution floats in gauge by a
    7-parameter similarity.  For every block pair sharing >= 3 targets a
    relative similarity is estimated (Umeyama); a small linear pose-graph
@@ -36,15 +37,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pickle
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fish_eye_bundle_adjustment_tpu_torch.io.problem import BAProblem
+from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, spawn_each
+from fish_eye_bundle_adjustment_tpu_torch.solver import device_loop
 from fish_eye_bundle_adjustment_tpu_torch.solver.dense import DenseResult, resolve_device
 from fish_eye_bundle_adjustment_tpu_torch.solver.schur import SchurOptions, solve_schur
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
+from fish_eye_bundle_adjustment_tpu_torch.utils.observe import Stopwatch
 
 
 # ----------------------------------------------------------------------
@@ -251,43 +257,117 @@ def fuse_block_points(problem: BAProblem, subs: Sequence[SubBlock],
     )
 
 
-def _load_before_threads():
-    """Load, once and in this thread, what the block solves' threads would
-    otherwise load for the first time at once: the kernel library, and
-    PyTorch's CUDA linear algebra, whose lazy loader raises "lazy wrapper
-    should be called at most once" when two threads reach it together."""
+def _block_devices(device: torch.device, parallel_blocks: bool, n_blocks: int):
+    """The devices of the block solves, a process each when there are
+    several: every visible card (at most one a block) when asked for
+    parallel blocks on "cuda" without an index and two or more cards are
+    visible; else `device` alone, in this process."""
+    if parallel_blocks and device.type == "cuda" and device.index is None and n_blocks > 1:
+        n = min(torch.cuda.device_count(), n_blocks)
+        if n > 1:
+            return [torch.device("cuda", k) for k in range(n)]
+    return [device]
+
+
+def _solve_one(block_solver, index, problem, device, kw):
+    """The solve of block `index`: (result, the counters it moved).  An
+    error raised in it names the block."""
+    before = device_loop.snapshot_counters()
+    try:
+        res = block_solver(problem, device=device, **kw)
+    except Exception as e:
+        e.add_note(f"solve_posegraph: in the solve of block {index} on {device}")
+        raise
+    return res, device_loop.counter_moves(before)
+
+
+def _start_on(device: torch.device) -> None:
+    """Make `device` this process's card, with its CUDA context and the
+    kernel library loaded (a block process's start-up)."""
     from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
+    torch.cuda.set_device(device)
+    torch.zeros(1, device=device)
     _build.load()
-    torch.linalg.inv_ex(torch.eye(2, device="cuda"))
 
 
-def _solve_blocks(subs, options, block_solver, parallel_blocks, device):
-    """Run the per-partition free-network solves.  Blocks are independent
-    (the merge happens afterwards): one after the other on `device`, or,
-    with parallel_blocks on the cards, one worker thread per visible
-    card, card k solving blocks k, k + cards, ... one after the other, so
-    no two blocks share a card at once (a device with an index keeps
-    every block on it).  The kernels' launch counters are not valid after
-    concurrent block solves."""
+def _block_worker(device, blocks, block_solver, kw, t_spawn):
+    """A block process: the start-up seconds (spawn to ready, by the
+    host's clock) and _solve_one of each of its (index, problem) blocks,
+    one after the other on `device`.  The results go back without their
+    problem and layout, which the parent holds."""
+    if device.type == "cuda":
+        _start_on(device)
+    startup_s = time.time() - t_spawn
+    out = []
+    for index, problem in blocks:
+        res, moves = _solve_one(block_solver, index, problem, device, kw)
+        if isinstance(res, DenseResult):
+            res = dataclasses.replace(res, problem=None, layout=None)
+        out.append((res, moves))
+    return startup_s, out
+
+
+@dataclasses.dataclass
+class BlockRuns:
+    """Where and how the block solves ran: each block's device and the
+    counters its solve moved (device_loop.counter_moves), and each block
+    process's start-up seconds (none when the blocks ran in the caller's
+    process)."""
+
+    devices: List[str]
+    moves: List[dict]
+    startup_s: List[float]
+
+
+def _solve_blocks(subs, options, block_solver, devices, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """Run the per-partition free-network solves on `devices`.  Blocks are
+    independent (the merge happens afterwards): with one device one after
+    the other in this process; with several, one spawned process a device
+    (mesh.spawn_each), device k solving blocks k, k + n, ... one after the
+    other, so no two blocks share a card at once.  `block_solver` must
+    then be a module-level function (a closure raises TypeError before any
+    process starts).  The kernel library is built here first, so the
+    processes never run nvcc together; each runs torch on its share of
+    this process's threads, and the counters its solves move are added to
+    this process's.  A failing process fails the call with its
+    traceback; past `timeout_s` every process is stopped and the call
+    raises.  Returns (results in block order, BlockRuns)."""
     # block covariances are never used (the merge consumes x only)
     kw = dict(options=options, keep_history=False, compute_covariance=False)
-    n = torch.cuda.device_count() if device.type == "cuda" and device.index is None else 1
-    if n == 1 or not parallel_blocks or len(subs) == 1:
-        return [block_solver(sb.problem, device=device, **kw) for sb in subs]
-    import concurrent.futures
+    n = len(devices)
+    if n == 1:
+        startup_s = []
+        done = [_solve_one(block_solver, i, sb.problem, devices[0], kw)
+                for i, sb in enumerate(subs)]
+    else:
+        try:
+            pickle.dumps(block_solver)
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            raise TypeError(f"solve_posegraph: the block solves run in processes, so "
+                            f"block_solver must be a module-level function: {e}") from e
+        if any(d.type == "cuda" for d in devices):
+            from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
-    _load_before_threads()
-
-    def run(k):
-        dev = torch.device("cuda", k)
-        with torch.cuda.device(dev):
-            return [(i, block_solver(subs[i].problem, device=dev, **kw))
-                    for i in range(k, len(subs), n)]
-
-    with concurrent.futures.ThreadPoolExecutor(max_workers=min(len(subs), n)) as ex:
-        done = dict(pair for card in ex.map(run, range(min(len(subs), n))) for pair in card)
-    return [done[i] for i in range(len(subs))]
+            _build.load()
+        t_spawn = time.time()
+        per_device = spawn_each(
+            _block_worker,
+            [(d, [(i, subs[i].problem) for i in range(k, len(subs), n)], block_solver, kw,
+              t_spawn) for k, d in enumerate(devices)],
+            timeout_s, threads=max(1, torch.get_num_threads() // n), what="solve_posegraph")
+        startup_s = [s for s, _ in per_device]
+        done = [None] * len(subs)
+        for k, (_, outs) in enumerate(per_device):
+            for i, (res, moves) in zip(range(k, len(subs), n), outs):
+                if isinstance(res, DenseResult):
+                    res = dataclasses.replace(res, problem=subs[i].problem,
+                                              layout=ParamLayout(subs[i].problem))
+                device_loop.add_counter_moves(moves)
+                done[i] = (res, moves)
+    runs = BlockRuns([str(devices[i % n]) for i in range(len(subs))],
+                     [m for _, m in done], startup_s)
+    return [r for r, _ in done], runs
 
 
 def merge_blocks(problem: BAProblem, subs: Sequence[SubBlock], results: Sequence[DenseResult],
@@ -347,6 +427,11 @@ class PoseGraphResult:
     block_results: List[DenseResult]
     edges: List[Tuple[int, int, np.ndarray]]
     refined: Optional[DenseResult] = None
+    # where the block solves ran and what they moved
+    block_runs: Optional[BlockRuns] = None
+    # host seconds of each stage: partition (with the blocks' extraction),
+    # blocks, merge, refine
+    stage_s: dict = dataclasses.field(default_factory=dict)
 
 
 def solve_posegraph(
@@ -357,32 +442,43 @@ def solve_posegraph(
     refine_mesh=None,
     min_shared: int = 3,
     block_solver=solve_schur,
-    parallel_blocks: bool = False,
+    parallel_blocks: bool = True,
     compute_covariance: bool = True,
     device=None,
 ) -> PoseGraphResult:
     """Partition -> block solves -> similarity pose-graph merge -> refine,
     on `device` (None: the CUDA cards; "cpu" when asked).
 
-    The block solves (`block_solver(problem, device=..., **kw)`) run one
-    after the other on `device`.  `parallel_blocks=True` runs them one
-    worker thread per visible card, block i on cuda:(i mod cards), a
-    card's blocks one after the other (the kernels' launch counters are
-    not valid after it).  It is off by default, where the JAX package's is
-    on: the solves share one Python process, and on the 1k-image bench
-    block's four host-bound blocks the threads took 17.6-20.5 s against
-    7.3-7.5 s one after the other over the same 4 cards
-    (bench_torch_parallel.py posegraph, H100).  The refine is
-    solve_schur on `device`, or solve_schur_distributed over `refine_mesh`
-    (a Mesh of the ranks that call this alike)."""
+    The block solves (`block_solver(problem, device=..., **kw)`) run in
+    parallel by default, as the JAX package's do: with two or more
+    visible cards and `device` without an index, one spawned process a
+    card, block i on cuda:(i mod cards), a card's blocks one after the
+    other (_solve_blocks; `block_solver` must then be a module-level
+    function).  The launch counters afterwards hold every block's
+    launches and the refine's.  At one card, on a device with an index, on
+    the CPU, or with `parallel_blocks=False`, the blocks run one after the
+    other in this process: the JAX package's thread pool on one device
+    only overlapped host work, and the port's threads (a worker a card, in
+    one Python process) lost to the serial order on the 1k-image bench
+    block over 4 H100s.  The refine is solve_schur on `device`, or
+    solve_schur_distributed over `refine_mesh` (a Mesh of the ranks that
+    call this alike)."""
     dev = resolve_device(device, "solve_posegraph")
+    watch = Stopwatch()
+    stage_s = {}
     parts = partition_images(problem, n_blocks)
     subs = [extract_block(problem, p) for p in parts]
-    results = _solve_blocks(subs, options, block_solver, parallel_blocks, dev)
+    stage_s["partition"] = watch.lap()
+    results, runs = _solve_blocks(subs, options, block_solver,
+                                  _block_devices(dev, parallel_blocks, len(subs)))
+    stage_s["blocks"] = watch.lap()
 
     eop, points, edges = merge_blocks(problem, subs, results, min_shared)
-    out = PoseGraphResult(eop=eop, points=points, block_results=results, edges=edges)
+    stage_s["merge"] = watch.lap()
+    out = PoseGraphResult(eop=eop, points=points, block_results=results, edges=edges,
+                          block_runs=runs, stage_s=stage_s)
     if refine:
+        device_loop.loop_counts.clear()
         layout = ParamLayout(problem)
         tie0 = points[problem.tie_target_idx]
         # warm-start IOPs from the blocks' own calibration estimates when
@@ -418,4 +514,5 @@ def solve_posegraph(
                 problem, options=options, keep_history=False, x0=x0,
                 compute_covariance=compute_covariance, device=dev,
             )
+        stage_s["refine"] = watch.lap()
     return out

@@ -50,9 +50,9 @@ card (utils/cudagraph.count_launch) and added to the counters after the
 loop (`loop_counts["replayed"]`).  So after a captured solve the launch
 counters and a mesh's collective counts (Mesh.counts, counted the same
 way) hold the warm-up's plus what the replays ran, an IF node that was
-off counting nothing; the CG counters hold the warm-up's.  The counters
-are not valid while solves run in several threads at once (a capture
-sets them back to a snapshot).
+off counting nothing; the CG counters hold the warm-up's.  Solves in
+other processes (the pose graph's block solves, a process a card) move
+their own counters, which the caller adds (add_counter_moves).
 """
 
 from __future__ import annotations
@@ -136,6 +136,32 @@ def _copy(d):
 def _diff(after, before):
     return {k: _diff(v, before.get(k, {})) if isinstance(v, dict) else v - before.get(k, 0)
             for k, v in after.items()}
+
+
+def snapshot_counters() -> dict:
+    """A copy of every launch and CG counter of this process, keyed as
+    _counters() keys them."""
+    return {k: _copy(d) for k, d in _counters().items()}
+
+
+def counter_moves(before: dict) -> dict:
+    """What the counters moved since `before` (a snapshot_counters())."""
+    return {k: _diff(d, before[k]) for k, d in _counters().items()}
+
+
+def add_counter_moves(moves: dict) -> None:
+    """Add `moves` (counter_moves of work done in another process) to this
+    process's counters."""
+    def add(d, m):
+        for k, v in m.items():
+            if isinstance(v, dict):
+                add(d.setdefault(k, {}), v)
+            else:
+                d[k] = d.get(k, 0) + v
+
+    counters = _counters()
+    for k, m in moves.items():
+        add(counters[k], m)
 
 
 def _restore(d, saved):

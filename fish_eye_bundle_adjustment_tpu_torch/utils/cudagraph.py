@@ -43,7 +43,7 @@ import threading
 import torch
 
 # cudaStreamCaptureModeThreadLocal: the capturing thread may not make
-# unsafe calls; other threads (other block solves) may
+# unsafe calls; other threads (a caller's other solves) may
 _THREAD_LOCAL = 1
 
 # one capture at a time in the process: the warm-up and capture of a step

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import subprocess
 from typing import Callable, Optional
 
 import numpy as np
@@ -28,6 +29,13 @@ def bound(tensors, flops, dtype):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
 
 
 SPIN_CYCLES = 40_000_000  # ~20 ms of the card's clock

@@ -3,16 +3,19 @@
 The reference's observability is `disp` lines + tic/toc (SURVEY.md §5.1,
 §5.5); here solvers emit structured per-iteration records to an optional
 callback and detect divergence instead of looping to the cap.  A copy of
-fish_eye_bundle_adjustment_tpu/utils/observe.py without ``profile_trace``,
-which waits for the port's tracing work (ROADMAP).
+fish_eye_bundle_adjustment_tpu/utils/observe.py, with ``profile_trace`` a
+torch.profiler trace in place of the JAX profiler's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
+import os
 import time
+from pathlib import Path
 from typing import Callable, List, Optional
 
 logger = logging.getLogger("fish_eye_bundle_adjustment_tpu_torch")
@@ -73,6 +76,30 @@ ProgressFn = Callable[[IterationRecord], None]
 def log_progress(rec: IterationRecord) -> None:
     """Default progress callback -> module logger (INFO)."""
     logger.info("%s", rec)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str] = None):
+    """torch.profiler trace context (CPU activity, and CUDA's where a card
+    is visible) that writes a Chrome trace, trace-<pid>-<ns>.json, under
+    `log_dir` when the block ends, and yields the profiler; a no-op
+    (yields None) when log_dir is None.  A trace loses kernels launched
+    inside a CUDA graph's IF bodies (the device loop's CG blocks): one
+    counted 91 of a solve's 272 K2 launches (PERF.md §6), so launches are
+    read from the kernels' counters, not from a trace."""
+    if log_dir is None:
+        yield None
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
 class Stopwatch:

@@ -137,8 +137,8 @@ def test_float32_blocks_match_jax_float32(model):
 
 
 def test_jacobians_in_threads_match_one_thread():
-    """Jacobian passes in several threads at once (the pose graph's block
-    solves run a thread a card) equal the pass in one thread, bitwise:
+    """Jacobian passes in several threads at once (a caller's solves in
+    threads) equal the pass in one thread, bitwise:
     torch.func's forward mode keeps its nesting in a process global, so
     unserialized threads lose each other's dual levels (zero Jacobian
     columns on the card, a RuntimeError here)."""

@@ -1,0 +1,71 @@
+"""The port's twins of bench_tenk.py and bench_posegraph.py
+(bench_torch_tenk.py, bench_torch_posegraph.py) at a small size on the
+CPU: each prints one JSON line that carries every key of the JAX
+script's committed output (TENK_r05.json, POSEGRAPH_r05.json; nested
+keys too), with the card-only keys null or empty.
+"""
+
+import json
+from pathlib import Path
+
+import pytest
+
+import bench_torch_posegraph
+import bench_torch_tenk
+from fish_eye_bundle_adjustment_tpu_torch.utils import observe
+
+from _torch_blocks import one_torch_thread  # noqa: F401 (autouse)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _keys(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= _keys(v, f"{prefix}{k}.")
+    return out
+
+
+def _printed(capsys):
+    lines = capsys.readouterr().out.strip().splitlines()
+    return json.loads(lines[-1])
+
+
+def test_tenk_twin_prints_the_jax_keys(capsys):
+    bench_torch_tenk.main(["--cpu", "--n-img", "12", "--n-pts", "150", "--steps", "2"])
+    got = _printed(capsys)
+    want = json.loads((REPO / "TENK_r05.json").read_text())
+    assert _keys(want) <= _keys(got)
+    assert got["backend"] == "cpu" and got["card"] is None
+    assert got["band_plan"]["W"] > 0 and got["step_ms"] > 0
+    assert got["solve"]["driver"] == "device loop (eager body)"
+    assert got["solve"]["replay_ms"] is None and got["solve"]["max_memory_allocated"] is None
+
+
+def test_posegraph_twin_prints_the_jax_keys(capsys):
+    bench_torch_posegraph.main(["--cpu", "--n-img", "12", "--n-pts", "150", "--blocks", "2"])
+    got = _printed(capsys)
+    want = json.loads((REPO / "POSEGRAPH_r05.json").read_text())
+    assert _keys(want) <= _keys(got)
+    assert got["block_devices"] == ["cpu", "cpu"] and got["startup_s"] == []
+    assert len(got["block_solve_s"]) == got["n_blocks"] == 2
+    assert set(got["stage_s"]) == {"partition", "blocks", "merge", "refine"}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_profile_trace(tmp_path, traced):
+    """profile_trace: a no-op at log_dir=None; else a Chrome trace of the
+    block's torch ops written under log_dir."""
+    import torch
+
+    log_dir = tmp_path / "trace" if traced else None
+    with observe.profile_trace(log_dir) as prof:
+        torch.ones(64).cumsum(0).sum()
+    if not traced:
+        assert prof is None and not any(tmp_path.iterdir())
+        return
+    (trace,) = log_dir.glob("trace-*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
