@@ -2,7 +2,7 @@
 1k-image self-calibrating bench block, beside the single-card solves they
 stand for.
 
-    python3 bench_torch_parallel.py [ranks] [order]   # from the repository root
+    python3 bench_torch_parallel.py [ranks] [order] [coll]   # from the repository root
 
 With no argument it runs ranks.  The pose graph's block solves over the
 cards (a spawned process a card) are bench_torch_posegraph.py's and
@@ -35,6 +35,16 @@ chip_smoke.py phase 18's.
   distance from one card's at the same CG depth in units of chip_smoke's
   fused_sharded tolerance, the CG counts, and a digest of each x (phase
   16 prints the same digest over several cards).
+
+- coll: one NCCL rank a card (two cards or more), each rank's peer
+  communicator: every schedule each collective takes (ops/peercoll.py
+  `run(..., schedule=...)`) at four CTA_BYTES (so four grids), at
+  all-reduce sizes across the two-shot threshold and at the solvers'
+  calls on the bench block and BASELINE configs[5]'s 10k block
+  (chip_smoke._coll_cases), float64 (and float32 at the tie sum), each
+  bitwise its plain version, against NCCL on the same tensors: CUDA
+  events, medians of 20 calls after 3 warm-ups, every rank timing
+  together; rank 0's table.
 
 Imports nothing of JAX.
 """
@@ -157,10 +167,91 @@ def run_order_part(p, dev, card):
         raise RuntimeError(f"[order] FAIL: x not finite at {failed}")
 
 
+CTA_SWEEP = (1 << 10, 4 << 10, 16 << 10, 64 << 10)
+# all-reduces across the two-shot threshold (float64 values)
+AR_SWEEP = (16_384, 65_536, 131_072, 196_608)
+
+
+def _coll_sweep(shapes, size):
+    """[(what, op, columns, dtype)]: the sweep's all-reduces, then the
+    solvers' calls of chip_smoke._coll_cases (float64; the tie sum in
+    float32 too)."""
+    out = [(f"sweep {n}", "all_reduce", n, torch.float64) for n in AR_SWEEP]
+    for what, op, shape in cs._coll_cases(shapes, size):
+        cols = int(np.prod(shape)) // (size if op == "reduce_scatter" else 1)
+        out.append((what, op, cols, torch.float64))
+        if what == "the distributed matvec's tie sum":
+            out.append((what, op, cols, torch.float32))
+    return out
+
+
+def _coll_rank(mesh, shapes):
+    """The sweep on this rank (every rank alike): rows of rank 0."""
+    import torch.distributed as dist
+
+    from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+    from fish_eye_bundle_adjustment_tpu_torch.utils.cudatime import cuda_ms
+
+    comm, size = mesh.comm, mesh.size
+    rng = np.random.default_rng([5, mesh.index])
+    rows, default_cta = [], peercoll.CTA_BYTES
+    for what, op, cols, dt in _coll_sweep(shapes, size):
+        rows_in = size if op == "reduce_scatter" else 1
+        x = torch.as_tensor(rng.standard_normal(rows_in * cols), dtype=dt, device=comm.device)
+        default = peercoll.plan(op, cols, x.element_size(), size, comm.workspace_bytes,
+                                comm.max_grid)[0]
+        want = peercoll.plain(op, x, comm)
+        for schedule in peercoll.TAKES[op]:
+            for cta in CTA_SWEEP:
+                peercoll.CTA_BYTES = cta
+                chunks = peercoll.plan(op, cols, x.element_size(), size, comm.workspace_bytes,
+                                       comm.max_grid, schedule)
+                fn = lambda op=op, x=x, schedule=schedule: peercoll.run(op, x, comm,
+                                                                       schedule=schedule)
+                got = fn()
+                torch.cuda.synchronize()
+                comm.check()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"[coll] FAIL: {op} {schedule} of {what} {dt}: not "
+                                       "bitwise its plain version")
+                dist.barrier()
+                ms = cuda_ms(fn, reps=20, warmup=3)
+                rows.append(dict(what=what, op=op, cols=cols, dtype=str(dt).split(".")[-1],
+                                 schedule=schedule, cta_bytes=cta, grid=chunks[0].grid,
+                                 launches=len(chunks), ms=ms,
+                                 default=(schedule, chunks[0].grid) == (default.schedule,
+                                                                        default.grid)))
+            peercoll.CTA_BYTES = default_cta
+        lib = cs._library_call(op, x, torch.empty_like(want))
+        lib()
+        torch.cuda.synchronize()
+        dist.barrier()
+        rows.append(dict(what=what, op=op, cols=cols, dtype=str(dt).split(".")[-1],
+                         schedule="NCCL", ms=cuda_ms(lib, reps=20, warmup=3)))
+    return rows
+
+
+def run_coll_part(p, card):
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit("coll needs two cards or more: one NCCL rank a card")
+    shapes = cs._coll_shapes(p)
+    rows = run_ranks(_coll_rank, n, "cuda", args=(shapes,), timeout_s=900)
+    for r in rows:
+        if r["schedule"] == "NCCL":
+            print(f"[coll] {r['op']} of {r['what']} ({r['cols']} columns, {r['dtype']}), "
+                  f"{n} cards: NCCL {r['ms']:.4f} ms [{card}]")
+        else:
+            print(f"[coll] {r['op']} of {r['what']} ({r['cols']} columns, {r['dtype']}), "
+                  f"{n} cards: {r['schedule']} grid {r['grid']} (CTA_BYTES {r['cta_bytes']}) "
+                  f"{r['launches']} launch(es) {r['ms']:.4f} ms"
+                  f"{' (the default)' if r['default'] else ''} [{card}]")
+
+
 def main():
     parts = sys.argv[1:] or ["ranks"]
-    if set(parts) - {"ranks", "order"}:
-        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [order]")
+    if set(parts) - {"ranks", "order", "coll"}:
+        raise SystemExit(f"usage: {sys.argv[0]} [ranks] [order] [coll]")
     card = cs.phase_environment()
     dev = torch.device("cuda")
     cs.phase_build()
@@ -169,6 +260,8 @@ def main():
         run_ranks_part(p, layout, plan, dev, card)
     if "order" in parts:
         run_order_part(p, dev, card)
+    if "coll" in parts:
+        run_coll_part(p, card)
 
 
 if __name__ == "__main__":

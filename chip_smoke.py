@@ -221,8 +221,10 @@ as peer-memory kernels at two ranks, and BASELINE configs[5]'s
                    collective in float64 and float32 at the bench block's
                    shapes on two ranks (the distributed matvec's tie sum,
                    the stats, the fused camera outputs, the Hcc blocks, the
-                   sharded pose sums and pose vector; the residual rows and
-                   the scattered tie sums past the workspace, in chunks):
+                   sharded pose sums and pose vector, the residual rows and
+                   the scattered tie sums; the tie sum and the scattered
+                   tie sums of BASELINE configs[5]'s 10k block, 23.5 MB a
+                   rank in float64; each one launch):
                    bitwise its plain version and itself, kernel, plain
                    and library times (the gloo group's own collective on
                    the same CUDA tensors, where gloo has one; the two
@@ -1643,10 +1645,16 @@ def _coll_shapes(p):
                 cam=kern.ne * kern.n_img + kern.ni * 128)
 
 
+# tie points of BASELINE configs[5]'s block, bench_tenk.py's make_block(10_000,
+# 1_000_000, seed=13): ParamLayout(problem).n_tie, counted on the block
+TENK_N_TIE = 979_998
+
+
 def _coll_cases(shapes, size):
     """[(what, op, shape)] on `size` ranks: the first of each op stands for
-    it in the kernel table; the last two go past the workspace (float64),
-    so they run in chunks."""
+    it in the kernel table; the last three are the tie sums, the last two
+    at BASELINE configs[5]'s 10k block (23.5 MB a rank in float64), each
+    one launch (ops/peercoll.WORKSPACE_BYTES)."""
     n_img, n_tie = shapes["n_img"], shapes["n_tie"]
     m_img = -(-n_img // size)
     return [
@@ -1658,17 +1666,24 @@ def _coll_cases(shapes, size):
         ("the sharded matvec's pose vector", "all_gather", (m_img, 6)),
         ("the residual rows", "all_gather", (-(-shapes["n_obs"] // size), 2)),
         ("the tie sums scattered", "reduce_scatter", (size * n_tie, 3)),
+        ("configs[5]'s tie sum", "all_reduce", (3 * TENK_N_TIE,)),
+        ("configs[5]'s tie sums scattered", "reduce_scatter", (size * TENK_N_TIE, 3)),
     ]
 
 
 def _coll_bound(op, x, out, size, cards):
-    """(bound_ms, "bytes"): what this rank's output needs read (every
-    rank's share once) and written, over the memory rate, or the peers'
-    shares over NVLink each way where the ranks hold several cards."""
+    """(bound_ms, "bytes"): what this rank's output needs read and
+    written over the memory rate (every rank's share once, the output
+    once), or, where the ranks hold several cards, the least any schedule
+    must bring in over NVLink each way: the peers' shares for the
+    reduce-scatter and the all-gather, 2 (size - 1) / size x the bytes
+    for the all-reduce (each rank sums 1/size of the columns and gathers
+    the rest; a one-shot schedule brings in (size - 1) x)."""
     b = x.element_size()
     share = out.numel() // size if op == "all_gather" else out.numel()
     hbm = (size * share + out.numel()) * b / HBM_BYTES_PER_S
-    link = (size - 1) * share * b / NVLINK_BYTES_PER_S if cards > 1 else 0.0
+    peers = 2 * (size - 1) / size if op == "all_reduce" else size - 1
+    link = peers * share * b / NVLINK_BYTES_PER_S if cards > 1 else 0.0
     return max(hbm, link) * 1e3, "bytes"
 
 

@@ -91,13 +91,14 @@ _SIGNATURES = {
                          ctypes.POINTER(ctypes.c_void_p), _P], _I),
     # comm handles (size x 64 bytes)
     "peercoll_open": ([_P, ctypes.c_char_p], _I),
-    # comm op dtype x x_stride out out_stride m stream
-    "peercoll_run": ([_P, _I, _I, _P, _L, _P, _L, _L, _P], _I),
+    "peercoll_max_grid": ([_P], _I),
+    # comm op schedule dtype x x_stride out out_stride n grid stream
+    "peercoll_run": ([_P, _I, _I, _I, _P, _L, _P, _L, _L, _I, _P], _I),
     "peercoll_error": ([_P], _I),
     "peercoll_destroy": ([_P], _I),
 }
 _ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2,
-        "graphcond": 1, "peercoll": 1}
+        "graphcond": 1, "peercoll": 2}
 
 
 def _nvcc() -> str:

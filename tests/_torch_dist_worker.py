@@ -96,14 +96,19 @@ def tie_sums(mesh, tie_sorted, n_tie, vals):
 
 def peer_inputs(rank, size, dtype, seed=0):
     """Rank `rank`'s inputs of the peer-collective cases, by name: (op,
-    array); the "big" ones pass the 4 MiB workspace (ops/peercoll.py) in
-    float32 and float64, so they run in chunks, the last one ragged.
-    Every rank makes every rank's from the seed, so the test can."""
+    array); "below" and "above" are all-reduces on either side of
+    ops/peercoll.TWO_SHOT_BYTES (one-shot, two-shot) in float32 and
+    float64, lengths no multiple of the ranks times a 16-byte group; the
+    "big" ones pass a 4 MiB half (PEER_CHUNKED_BYTES), so they run in
+    chunks there, the last one ragged.  Every rank makes every rank's from
+    the seed, so the test can."""
     g = np.random.default_rng([seed, rank])
     r = lambda *shape: (g.standard_normal(shape) * 10.0 ** g.integers(-3, 4, shape)).astype(dtype)
     return {
         "scalar": ("all_reduce", r()),
         "vector": ("all_reduce", r(7)),
+        "below": ("all_reduce", r(20_001)),
+        "above": ("all_reduce", r(100_003)),
         "big": ("all_reduce", r(1_300_001)),
         "blocks": ("reduce_scatter", r(size * 3, 2, 5)),
         "big_scatter": ("reduce_scatter", r(size * 700_001)),
@@ -112,13 +117,17 @@ def peer_inputs(rank, size, dtype, seed=0):
     }
 
 
+# 4 MiB halves: the "big" peer cases run in chunks at them
+PEER_CHUNKED_BYTES = 4 << 20
+
+
 def peer_plain(mesh, seed=0):
     """The plain peer collectives (ops/peercoll.py, CPU tensors) on this
-    rank's inputs, in float32 and float64: {(name, dtype): (result, plain
-    calls)}."""
+    rank's inputs, in float32 and float64, with halves of
+    PEER_CHUNKED_BYTES: {(name, dtype): (result, plain calls)}."""
     from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
 
-    comm = peercoll.PeerComm("cpu", mesh.index, mesh.size)
+    comm = peercoll.PeerComm("cpu", mesh.index, mesh.size, workspace_bytes=PEER_CHUNKED_BYTES)
     out = {}
     for dtype in ("float32", "float64"):
         for name, (op, x) in peer_inputs(mesh.index, mesh.size, dtype, seed).items():

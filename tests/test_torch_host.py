@@ -126,7 +126,7 @@ def test_port_imports_no_jax():
     """Importing every module of the port (the solvers, the io readers and
     native parser, the reports, plots and CLI included), chip_smoke.py,
     the bench twins (bench_torch_*.py, the tenk and pose-graph ones
-    included) and bench_torch_parallel.py in a
+    included), bench_torch_parallel.py and bench_torch_block.py in a
     fresh interpreter leaves jax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -140,7 +140,7 @@ def test_port_imports_no_jax():
         "import fish_eye_bundle_adjustment_tpu_torch.report.plots\n"
         "import chip_smoke, bench_torch_streamseg, bench_torch_pallas_gather\n"
         "import bench_torch_pallas_onehot, bench_torch_fusedmv, bench_torch_parallel\n"
-        "import bench_torch_tenk, bench_torch_posegraph\n"
+        "import bench_torch_tenk, bench_torch_posegraph, bench_torch_block\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('fish_eye_bundle_adjustment_tpu.'))\n"
         "assert not bad, bad\n"

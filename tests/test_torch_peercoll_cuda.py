@@ -10,12 +10,17 @@ spawned processes on cuda:0 (parallel/mesh.run_ranks over a gloo group,
 each rank opening its communicator on the card), which needs one card:
 
 - each collective, float32 and float64, at the cases of
-  tests/_torch_dist_worker.peer_inputs (the larger calls past the
-  workspace, in chunks): bitwise equal to its plain version and to the
-  numpy rank-ordered sum or concatenation; the
-  three inside IF nodes of a captured graph, replayed with new inputs and
-  flags: each replay's results bitwise the plain versions', the launches
-  counted on the card those of the IF nodes that were on;
+  tests/_torch_dist_worker.peer_inputs (all-reduces on either side of
+  the two-shot threshold, lengths no multiple of the ranks times a
+  16-byte group, calls past a 4 MiB half in one launch, and in
+  chunks at halves of that size): bitwise equal to its plain version
+  and to the numpy rank-ordered sum or concatenation, in the launches of
+  `peercoll.plan`; every schedule each op takes, bitwise its plain
+  version; the collectives (the all-reduce at both schedules) inside IF
+  nodes of a captured graph, replayed five times with new inputs and
+  flags, so the calls' halves alternate: each replay's results bitwise
+  the plain versions', the launches counted on the card those of the IF
+  nodes that were on;
 - a rank that never arrives: the other's call gives up after its spin
   limit, `check` raises, and later calls return at once;
 - with two cards or more, solve_schur_distributed at two NCCL ranks (a
@@ -33,14 +38,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist_worker import peer_inputs
-from fish_eye_bundle_adjustment_tpu_torch.ops.peercoll import WORKSPACE_BYTES
+from _torch_dist_worker import PEER_CHUNKED_BYTES, peer_inputs
+from fish_eye_bundle_adjustment_tpu_torch.ops.peercoll import WORKSPACE_BYTES, plan
 from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import run_ranks
 
 pytestmark = pytest.mark.gpu
-
-OPS = ("all_reduce", "reduce_scatter", "all_gather")
-
 
 def _card():
     if not torch.cuda.is_available():
@@ -48,22 +50,23 @@ def _card():
     return torch.device("cuda")
 
 
-def _peer(mesh, spin_s=30.0):
+def _peer(mesh, spin_s=30.0, workspace_bytes=WORKSPACE_BYTES):
     """This rank's communicator on cuda:0 over the gloo group of `mesh`."""
     from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    return peercoll.PeerComm(dev, mesh.index, mesh.size, spin_s=spin_s)
+    return peercoll.PeerComm(dev, mesh.index, mesh.size, spin_s=spin_s,
+                             workspace_bytes=workspace_bytes)
 
 
-def _rank_parity(mesh):
+def _rank_parity(mesh, workspace_bytes=WORKSPACE_BYTES):
     """Kernel and plain version of every case: {(name, dtype): (kernel,
     plain, launches)}."""
     from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
 
     out = {}
-    comm = _peer(mesh)
+    comm = _peer(mesh, workspace_bytes=workspace_bytes)
     for dtype in ("float32", "float64"):
         for name, (op, x) in peer_inputs(mesh.index, mesh.size, dtype).items():
             xt = torch.as_tensor(x, device=comm.device)
@@ -78,10 +81,39 @@ def _rank_parity(mesh):
     return out
 
 
+def _rank_schedules(mesh):
+    """Every schedule of every op at a one-group length and a ragged one,
+    float32 and float64: {(op, schedule, n, dtype): (kernel, plain)}."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+
+    out = {}
+    comm = _peer(mesh)
+    rng = np.random.default_rng([3, mesh.index])
+    for dtype in (torch.float32, torch.float64):
+        for n in (4, 100_003):
+            for op, schedules in peercoll.TAKES.items():
+                rows = mesh.size if op == "reduce_scatter" else 1
+                x = torch.as_tensor(rng.standard_normal(rows * n), dtype=dtype,
+                                    device=comm.device)
+                for schedule in schedules:
+                    got = peercoll.run(op, x, comm, schedule=schedule)
+                    want = peercoll.plain(op, x, comm)
+                    torch.cuda.synchronize()
+                    comm.check()
+                    out[(op, schedule, n, str(dtype))] = (got.cpu().numpy(), want.cpu().numpy())
+    comm.close()
+    return out
+
+
+GRAPH_CASES = (("all_reduce", None), ("all_reduce", 5_000), ("reduce_scatter", None),
+               ("all_gather", None))
+
+
 def _rank_graph(mesh):
-    """The three collectives under IF nodes of one captured graph, replayed
-    with new inputs and flags: per replay (kernel outputs, plain outputs),
-    and the launches the replays ran."""
+    """The collectives of GRAPH_CASES (op, columns of x or all of it)
+    under IF nodes of one captured graph, replayed with new inputs and
+    flags: per replay (kernel outputs, plain outputs), and the launches
+    the replays ran."""
     from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
     from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import (
         StepGraph,
@@ -90,18 +122,19 @@ def _rank_graph(mesh):
 
     comm = _peer(mesh)
     dev = comm.device
-    n = 350_000 * mesh.size  # past the workspace in float64: chunks inside the graph
+    n = 350_000 * mesh.size  # past a 4 MiB half in float64, in one launch
     x = torch.zeros(n, dtype=torch.float64, device=dev)
-    flags = torch.zeros(len(OPS), dtype=torch.bool, device=dev)
-    outs = {op: torch.zeros(n * mesh.size, dtype=torch.float64, device=dev) for op in OPS}
+    flags = torch.zeros(len(GRAPH_CASES), dtype=torch.bool, device=dev)
+    outs = [torch.zeros(n * mesh.size, dtype=torch.float64, device=dev) for _ in GRAPH_CASES]
 
-    def body(op):
-        got = getattr(peercoll, op)(x, comm)
-        outs[op][: got.numel()].copy_(got)
+    def body(k):
+        op, cols = GRAPH_CASES[k]
+        got = getattr(peercoll, op)(x[:cols], comm)
+        outs[k][: got.numel()].copy_(got)
 
     def step():
-        for k, op in enumerate(OPS):
-            run_if(flags[k].clone(), lambda op=op: body(op))
+        for k in range(len(GRAPH_CASES)):
+            run_if(flags[k].clone(), lambda k=k: body(k))
 
     flags.fill_(True)
     x.copy_(torch.arange(n, dtype=torch.float64, device=dev))
@@ -115,16 +148,17 @@ def _rank_graph(mesh):
     graph.capture(step)
     rng = np.random.default_rng([7, mesh.index])
     replays = []
-    for on in ((True, True, True), (False, True, False), (True, False, True)):
+    for on in ((True, True, True, True), (False, True, True, False), (True, False, False, True),
+               (True, True, False, False), (False, False, True, True)):
         x.copy_(torch.as_tensor(rng.standard_normal(n), device=dev))
-        for op in OPS:
-            outs[op].zero_()
+        for o in outs:
+            o.zero_()
         flags.copy_(torch.tensor(on, device=dev))
         graph.replay()
         torch.cuda.synchronize()
         comm.check()
-        want = {op: peercoll.plain(op, x, comm).cpu().numpy() for op in OPS}
-        replays.append((on, {op: outs[op].cpu().numpy() for op in OPS}, want))
+        want = [peercoll.plain(op, x[:cols], comm).cpu().numpy() for op, cols in GRAPH_CASES]
+        replays.append((on, [o.cpu().numpy() for o in outs], want))
     ran = graph.collect(add=False)
     comm.close()
     return replays, {k: v for k, v in ran.items() if str(k).startswith("peer_")}
@@ -155,8 +189,9 @@ def _rank_absent(mesh):
 
     out = torch.empty_like(x)
     t0 = time.perf_counter()
-    _build.check(_build.load().peercoll_run(comm.handle, 0, 0, x.data_ptr(), 10, out.data_ptr(),
-                                            10, 10, torch.cuda.current_stream().cuda_stream),
+    _build.check(_build.load().peercoll_run(comm.handle, 0, 1, 0, x.data_ptr(), 10,
+                                            out.data_ptr(), 10, 10, 1,
+                                            torch.cuda.current_stream().cuda_stream),
                  "peer all_reduce")
     torch.cuda.synchronize()
     dead_call = time.perf_counter() - t0
@@ -176,9 +211,7 @@ def _want(op, xs, rank):
     return acc
 
 
-def test_collectives_match_plain_bitwise():
-    _card()
-    got = run_ranks(_rank_parity, 2, "cpu", timeout_s=300)
+def _check_parity(got, half):
     inputs = [peer_inputs(r, 2, "float32") for r in range(2)]
     for (name, dtype), (kern, plain, launches) in got.items():
         op, x = inputs[0][name]
@@ -186,25 +219,45 @@ def test_collectives_match_plain_bitwise():
         np.testing.assert_array_equal(kern, plain, err_msg=f"{name} {dtype}")
         np.testing.assert_array_equal(kern, _want(op, xs, 0), err_msg=f"{name} {dtype}")
         rows = 2 if op == "reduce_scatter" else 1
-        per = WORKSPACE_BYTES // (np.dtype(dtype).itemsize * rows)
-        assert launches == max(1, -(-(x.size // rows) // per)), (name, dtype)
+        chunks = plan(op, x.size // rows, np.dtype(dtype).itemsize, 2, half, 1)
+        assert launches == len(chunks), (name, dtype)
         if name.startswith("big"):
-            assert launches > 1, (name, dtype)
+            assert (launches > 1) == (half < WORKSPACE_BYTES), (name, dtype)
+
+
+def test_collectives_match_plain_bitwise():
+    _card()
+    _check_parity(run_ranks(_rank_parity, 2, "cpu", timeout_s=300), WORKSPACE_BYTES)
+
+
+def test_collectives_in_chunks_match_plain_bitwise():
+    _card()
+    got = run_ranks(_rank_parity, 2, "cpu", args=(PEER_CHUNKED_BYTES,), timeout_s=300)
+    _check_parity(got, PEER_CHUNKED_BYTES)
+
+
+def test_every_schedule_matches_plain_bitwise():
+    _card()
+    got = run_ranks(_rank_schedules, 2, "cpu", timeout_s=300)
+    assert len(got) == 2 * 2 * 4  # dtypes, lengths, (op, schedule)
+    for key, (kern, plain) in got.items():
+        np.testing.assert_array_equal(kern, plain, err_msg=str(key))
 
 
 def test_collectives_inside_if_nodes():
     _card()
     replays, ran = run_ranks(_rank_graph, 2, "cpu", timeout_s=300)
-    chunks = {"all_reduce": 2, "reduce_scatter": 2, "all_gather": 2}  # 700,000 f64 a rank
     want_ran = {}
     for on, got, want in replays:
-        for k, op in enumerate(OPS):
+        for k, (op, cols) in enumerate(GRAPH_CASES):
             if on[k]:
-                n = want[op].size
-                np.testing.assert_array_equal(got[op][:n], want[op], err_msg=op)
-                want_ran[f"peer_{op}"] = want_ran.get(f"peer_{op}", 0) + chunks[op]
+                n = want[k].size
+                np.testing.assert_array_equal(got[k][:n], want[k], err_msg=str(GRAPH_CASES[k]))
+                cols = n // 2 if op == "all_gather" else n
+                chunks = plan(op, cols, 8, 2, WORKSPACE_BYTES, 1)
+                want_ran[f"peer_{op}"] = want_ran.get(f"peer_{op}", 0) + len(chunks)
             else:
-                assert not got[op].any(), op
+                assert not got[k].any(), GRAPH_CASES[k]
     assert ran == want_ran
 
 
