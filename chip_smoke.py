@@ -243,6 +243,20 @@ as peer-memory kernels at two ranks, and BASELINE configs[5]'s
                    warm-up + replays (K1 1 + steps, K2 by phase 17's
                    formula), sigma0^2 finite and falling (weighted SSR over
                    n - u at x0 and after)
+ 21. cli10k        the CLI's default route on phase 20's block, as a user
+                   runs it: synth.write_block into a temporary folder with
+                   the .cfg's Iteration_Cap cut to CLI10K_CAP = 3 (the only
+                   cut: the widths, the 64 probes and the 400-iteration CG
+                   budget stay), then cli.main(folder, plot=False) on the
+                   card (bench_torch_cli.run_route): "schur" picked, the
+                   matrix-free float64 solve under the device loop (K4
+                   launches = warm-up + 6 * steps + 2 * matvecs, counted on
+                   the card), the Hutchinson stds (3 k + 64 CG solves, K1
+                   once, K2 a CG matvec), every std finite and
+                   non-negative, .out/.par written and a .rsd row an
+                   observation, no plain version called; each stage's wall
+                   and peak device memory printed; K4 timed at its float64
+                   D = 6 shape on this stream
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -263,7 +277,9 @@ and the span segment sum on the estimator's path (phase 15), and K1, K2
 and K4 on the distributed paths (phase 16), K1, K2 and K4 under the
 device loop (phase 17: launches are the warm-up's plus those the
 replays ran, counted on the card), K1 and K2 at the 10k-image block's
-shapes (phase 20: its solve's launches), and the three peer
+shapes (phase 20: its solve's launches; phase 21: K1 and K2 with the
+launches of the CLI's estimate, K4 at the CLI's float64 solve's stream
+with its launches), and the three peer
 collectives (phase 19's solves' launches,
 with phase 16's over several cards; times of phase 16 over several
 cards, with NCCL's as the library time, else of phase 19, with gloo's
@@ -288,12 +304,14 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+import bench_torch_cli
 import bench_torch_fusedmv
 import bench_torch_pallas_gather
 import bench_torch_pallas_onehot
@@ -2386,7 +2404,72 @@ def phase_tenk(dev, card):
         raise RuntimeError(f"[{tag}] FAIL: the solve, or sigma0^2 did not fall")
     if ran != want or plain:
         raise RuntimeError(f"[{tag}] FAIL: launches {ran}, want {want}; plain {plain}")
-    return rows, ran
+    return rows, ran, p
+
+
+CLI10K_CAP = 3  # the .cfg's Iteration_Cap of phase 21's dataset (depth cut)
+
+
+def phase_cli10k(p, dev, card):
+    """The CLI's default route on BASELINE configs[5]'s block (phase 20's
+    problem), the .cfg's cap cut to CLI10K_CAP: cli.main on the card with
+    every default (bench_torch_cli.run_route and its checks), then K4 at
+    the float64 solve's D = 6 shape on its stream.  Returns the K4 row
+    and the route's launches."""
+    from fish_eye_bundle_adjustment_tpu_torch.io import native
+
+    tag = "21 cli10k"
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cli10k-") as root:
+        folder = Path(root) / "ds"
+        write_s = bench_torch_cli.write_dataset(p, folder, cap=CLI10K_CAP)
+        print(f"[{tag}] synth.write_block of the 10k block ({p.n_obs} observations, "
+              f"Iteration_Cap {CLI10K_CAP}): {write_s:.1f} s, .pho "
+              f"{(folder / 'synth.pho').stat().st_size / 1e6:.0f} MB; the C++ .pho parser "
+              f"{'built' if native.available() else 'NOT available'}")
+        if not native.available():
+            raise RuntimeError(f"[{tag}] FAIL: no native .pho parser (the Python reader "
+                               f"would take its place)")
+        torch.cuda.synchronize()
+        _reset_counts()
+        schur.reset_cg_counts()
+        t0 = time.perf_counter()
+        route = bench_torch_cli.run_route(folder)
+        wall = time.perf_counter() - t0
+        for st in route["stages"]:
+            print(f"[{tag}] stage {st.name}: {st.seconds:.3f} s, peak "
+                  f"{st.peak_bytes / 2**30:.2f} GiB, held at its end "
+                  f"{st.held_bytes / 2**30:.2f} GiB")
+        if route["result"] is None:
+            raise RuntimeError(f"[{tag}] FAIL: cli.main returned {route['rc']}:\n"
+                               f"{route['text'][-3000:]}")
+        sm = bench_torch_cli.summarize(route)
+        bad = bench_torch_cli.check(route, sm, folder)
+        reports = {ext: (folder / f"ds.{ext}").stat().st_size / 1e6
+                   for ext in ("out", "rsd", "par") if (folder / f"ds.{ext}").exists()}
+    print(f"[{tag}] cli.main(plot=False) on the card: rc {sm['rc']} in {wall:.1f} s; "
+          f"{sm['block']}; solver {sm['solver']}, {sm['driver']}: {sm['iterations']} "
+          f"iterations ({sm['stopped_on']}), cg per step {sm['cg_per_step']}, sigma0^2 "
+          f"{sm['sigma02']:.6f}, sum|delta| {sm['delta_history']}; capture "
+          f"{sm['capture_s'] or 0.0:.2f} s, {sm['replay_ms'] or float('nan'):.1f} ms a "
+          f"replay, graph pools "
+          f"+{sm['capture_reserved_gib']:.2f} GiB; peak {sm['peak_gib']:.2f} GiB [{card}]")
+    print(f"[{tag}] stds {sm['std_method']}: CG solves {sm['stds_cg_solves']} (want "
+          f"{sm['stds_cg_solves_want']} in all), iterations {sm['stds_cg_iterations']}, "
+          f"{sm['stds_cg_at_cap']} at the cap of 400, {sm['stds_cg_matvecs']} matvecs; "
+          f"stds {sm['stds']}")
+    print(f"[{tag}] launches {sm['launches']} (want {sm['launches_want']}); plain versions "
+          f"{sm['plain_calls']}; reports {reports} MB, .rsd rows {sm.get('rsd_rows')}")
+    if bad:
+        raise RuntimeError(f"[{tag}] FAIL: " + "; ".join(bad))
+    n = -(-p.n_obs // prefix.CHUNK) * prefix.CHUNK
+    vals = torch.as_tensor(np.random.default_rng(21).standard_normal((n, 6)),
+                           dtype=torch.float64, device=dev)
+    k4 = _k4_check(tag, "float64 D=6", vals)
+    k4["launches"] = sm["launches"]["chunk_prefix (solve)"]
+    del vals
+    torch.cuda.empty_cache()
+    return k4, sm["launches"]
 
 
 def main():
@@ -2431,8 +2514,12 @@ def main():
     peer_coll, peer_launches = phase_peer(p, stds_p, card)
     print(f"[19 peer collectives] phase 19 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tenk_rows, tenk_launches = phase_tenk(dev, card)
+    tenk_rows, tenk_launches, tenk_p = phase_tenk(dev, card)
     print(f"[20 tenk] phase 20 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_k4, cli_launches = phase_cli10k(tenk_p, dev, card)
+    del tenk_p
+    print(f"[21 cli10k] phase 21 took {time.perf_counter() - t0:.1f} s")
     # K2 is timed in its hot mode (one launch per CG iteration, at the main
     # path's "bf16"), K4 at the width and type of the unfused path's CG image
     # sum (float64, D = 6);
@@ -2544,6 +2631,24 @@ def main():
         table.append(dict(
             name=f"{kernel}/tenk", route="cuda", source=SOURCES[kernel],
             replaces=[REPLACES[kernel]], launches=tenk_launches[kernel],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        ))
+    # the CLI's default route on the same block (phase 21): K4 under its
+    # float64 solve (timed at D = 6 on its stream), K1 and K2 under its
+    # Hutchinson estimate (the times of phase 20's shapes), launches of its run
+    table.append(dict(
+        name="chunk_prefix/cli10k", route="cuda", source=SOURCES["chunk_prefix"],
+        replaces=[REPLACES["chunk_prefix"]], launches=cli_k4["launches"],
+        max_abs_err=cli_k4["max_abs_err"], ms=cli_k4["ms"], plain_ms=cli_k4["plain_ms"],
+        bound_ms=cli_k4["bound_ms"], bound_by=cli_k4["bound_by"],
+        library_ms=cli_k4["library_ms"],
+    ))
+    for name, r in tenk_rows.items():
+        kernel = name.split("/")[0]
+        table.append(dict(
+            name=f"{kernel}/stds10k", route="cuda", source=SOURCES[kernel],
+            replaces=[REPLACES[kernel]], launches=cli_launches[f"{kernel} (stds)"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         ))

@@ -49,6 +49,7 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
     from fish_eye_bundle_adjustment_tpu_torch.io.problem import load_problem
     from fish_eye_bundle_adjustment_tpu_torch.io.readers import DatasetError
     from fish_eye_bundle_adjustment_tpu_torch.report.writers import write_reports
+    from fish_eye_bundle_adjustment_tpu_torch.utils.observe import mark_stage
 
     folder = Path(folder)
     out_dir = Path(out_dir) if out_dir else folder
@@ -57,6 +58,7 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
     except (DatasetError, ConfigError, OSError) as e:
         print(f"Error reading files: {e}", file=sys.stderr)
         return 1
+    mark_stage("read")
 
     print(f"Files read successfully! ({folder})")
     print(
@@ -73,6 +75,8 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
         print(f"Error during adjustment: {e}", file=sys.stderr)
         return 1
     elapsed = time.perf_counter() - t0
+    # what the solver's own marks (utils/observe.mark_stage) left unnamed
+    mark_stage("solve")
     if not _writes_reports():
         return 0
 
@@ -86,11 +90,13 @@ def main(folder, plot: bool = True, cfg: Optional[str] = None,
         out_dir.mkdir(parents=True, exist_ok=True)
         paths = write_reports(result, out_dir, elapsed_s=elapsed)
         print(f"Wrote {paths['out'].name}, {paths['rsd'].name}, {paths['par'].name}")
+        mark_stage("reports")
         if plot:
             from fish_eye_bundle_adjustment_tpu_torch.report.plots import write_plots
 
             for p in write_plots(result, out_dir):
                 print(f"Wrote {Path(p).name}")
+            mark_stage("plots")
     except OSError as e:
         print(f"Error writing output: {e}", file=sys.stderr)
         return 1

@@ -53,6 +53,7 @@ from fish_eye_bundle_adjustment_tpu_torch.solver.explicit import (
     weighted_outer,
 )
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
+from fish_eye_bundle_adjustment_tpu_torch.utils.observe import mark_stage
 
 @dataclasses.dataclass
 class SchurCovariance:
@@ -321,7 +322,10 @@ def estimate_schur_stds(
     solves: each rank holds its slice of the float32 unfused tie-sorted
     stream (the chunk prefix K4 under its sums) on mesh.device, and every
     sum is all-reduced, so every rank returns the same stds.  `info`, when
-    given, receives the CG iterations of every solve."""
+    given, receives the CG iterations of every solve (`cg_iterations`) and
+    the same by class of solve, in the order they ran (`cg_classes`):
+    "subspace" (the deflation basis's inverse subspace iterations, 2 k),
+    "deflation" (Cc V, k), "camera" and "point" (the probes)."""
     from fish_eye_bundle_adjustment_tpu_torch.solver.schur import (
         ObsData,
         SchurKernel,
@@ -345,6 +349,7 @@ def estimate_schur_stds(
         kernel = SchurKernel(layout, opts, reduce_fn=mesh.psum)
         obs = ObsData.from_problem(problem, layout, None, dtype=dtype, device=dev,
                                    obs_order="tie", n_shards=mesh.size, shard=mesh.index)
+    mark_stage("stds obs")
     use_ic = problem.settings.inner_constraints
     q = torch.as_tensor((np.asarray(x) * layout.scale).astype(dtype), device=dev)
     nc, nt = kernel.nc, kernel.n_tie
@@ -353,6 +358,9 @@ def estimate_schur_stds(
     precond = fac.make_preconditioner()[0]
     wx, wy = fac._w
     iters = []
+    # the index in `iters` where each class of solve begins
+    starts = {}
+    mark_stage("stds factor")
 
     def solve_probe(ec, ep, V):
         """One probe through N^-1.  Returns the CONTROL-VARIATE-REDUCED
@@ -398,6 +406,7 @@ def estimate_schur_stds(
         if j < ni_:
             pat[n_img_ * ne_ + j:: ni_] = 1.0
         diagM += np.asarray(pat, np.float64) * host(precond(dev_vec(pat)))
+    mark_stage("stds diag(M)")
 
     rng = np.random.default_rng(seed)
     zero_c = torch.zeros(nc, dtype=tdt, device=dev)
@@ -422,30 +431,38 @@ def estimate_schur_stds(
         return host(zc) + host(precond(v_j))
 
     if k_defl >= 2:
+        starts["subspace"] = len(iters)
         V_np, _ = np.linalg.qr(rng.normal(size=(nc, k_defl)))
         for _ in range(subspace_iters):
             Z = np.stack([cc_apply(V_np[:, j], V_zero) for j in range(k_defl)], 1)
             V_np, _ = np.linalg.qr(Z)
+        mark_stage("stds subspace solves")
+        starts["deflation"] = len(iters)
         CV = np.stack([cc_apply(V_np[:, j], V_zero) for j in range(k_defl)], 1)
         diag_defl_c = np.einsum("ik,ik->i", CV, V_np)
         if nt:
             BtV = np.stack([host(bt_apply(dev_vec(V_np[:, j]))) for j in range(k_defl)], 2)
             BtCV = np.stack([host(bt_apply(dev_vec(CV[:, j]))) for j in range(k_defl)], 2)
             diag_defl_p = np.einsum("tpk,tpk->tp", BtV, BtCV)
+        mark_stage("stds deflation solves")
     V_dev = dev_vec(V_np)
 
     n_cam_probes = n_probe - n_probe // 2 if nt else n_probe
     n_pt_probes = n_probe - n_cam_probes
     acc_c = np.zeros(nc)
+    starts["camera"] = len(iters)
     for _ in range(n_cam_probes):
         e = (rng.integers(0, 2, nc) * 2 - 1).astype(np.float64)
         zc, _ = solve_probe(dev_vec(e / d), zero_p, V_dev)
         acc_c += d * e * host(zc)
+    mark_stage("stds camera probes")
     acc_p = np.zeros((nt, 3))
+    starts["point"] = len(iters)
     for _ in range(n_pt_probes):
         e = (rng.integers(0, 2, (nt, 3)) * 2 - 1).astype(dtype)
         _, zp_corr = solve_probe(zero_c, dev_vec(e), V_dev)
         acc_p += e.astype(np.float64) * host(zp_corr)
+    mark_stage("stds point probes")
     var_q = np.zeros(layout.u)
     var_q[:nc] = acc_c / max(n_cam_probes, 1) + diag_defl_c + diagM
     if nt:
@@ -453,9 +470,14 @@ def estimate_schur_stds(
         var_q[layout.tie_offset:] = (acc_p / max(n_pt_probes, 1) + diag_defl_p
                                      + base_p).reshape(-1)
     if info is not None:
-        info["cg_iterations"] = torch.stack(iters).tolist() if iters else []
+        its = torch.stack(iters).tolist() if iters else []
+        bounds = list(starts.values()) + [len(its)]
+        info["cg_iterations"] = its
+        info["cg_classes"] = {name: its[a:b] for name, a, b in zip(starts, bounds, bounds[1:])}
     var_x = var_q / layout.scale**2 * sigma02
-    return np.sqrt(np.maximum(var_x, 0.0))
+    std = np.sqrt(np.maximum(var_x, 0.0))
+    mark_stage("stds finish")
+    return std
 
 
 def compute_stds(
@@ -480,6 +502,7 @@ def compute_stds(
     cov = schur_covariance(problem, layout, x, sigma02, max_images=max_images,
                            device=device, pieces=pieces)
     if cov is not None:
+        mark_stage("stds exact")
         return cov.std, cov.Cc_q, "exact"
     if n_probe:
         std = estimate_schur_stds(problem, layout, x, sigma02, n_probe=n_probe,

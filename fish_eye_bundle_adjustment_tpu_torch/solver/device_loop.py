@@ -73,6 +73,7 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     IterationRecord,
     SolverDivergence,
     Stopwatch,
+    mark_stage,
 )
 
 # status codes carried on device
@@ -538,6 +539,7 @@ def _capture(gated, body, st, recs, ri, si, dev, counters, info, bodies):
         for t, v in zip((recs, ri, si), saved_recs):
             t.copy_(v)
         torch.cuda.synchronize(dev)
+        mark_stage("warm-up")
         warmed = {k: _copy(d) for k, d in counters.items()}
         graph = StepGraph(bodies)
         # the capture empties the allocator's cache first: measure from there
@@ -550,4 +552,5 @@ def _capture(gated, body, st, recs, ri, si, dev, counters, info, bodies):
             _restore(d, warmed[k])
         info["capture_reserved_bytes"] = torch.cuda.memory_reserved(dev) - reserved
     info["capture_s"] = time.perf_counter() - t0
+    mark_stage("capture")
     return graph

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from typing import Optional
@@ -98,6 +99,7 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     SolverDivergence,
     Stopwatch,
     check_divergence,
+    mark_stage,
 )
 
 # rows of the operator's IOP outputs (out_iop, di): one camera's IOPs fit
@@ -1548,6 +1550,7 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
             raw_step, obs, layout, problem, opts, chunk=opts.device_chunk, n_pad=n_pad,
             writes_checkpoints=writes_checkpoints, cg_iterations=cg_iterations,
             mesh=mesh, **kw)
+        mark_stage("loop")
         return out, cg_iterations
     counted = []  # 0-d device counts, read once at the end
 
@@ -1558,6 +1561,7 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
 
     out = run_gn_loop(step, obs, layout, problem, opts, keep_history=keep_history,
                       writes_checkpoints=writes_checkpoints, **kw)
+    mark_stage("loop")
     return out, torch.stack(counted).tolist() if counted else []
 
 
@@ -1588,6 +1592,31 @@ def solve_schur(
     """
     opts = options or SchurOptions()
     dev = resolve_device(device, "solve_schur")
+    result = _solve(problem, opts, keep_history, x0, progress_fn, checkpoint_path,
+                    checkpoint_every, dev)
+    if compute_covariance:
+        from fish_eye_bundle_adjustment_tpu_torch.solver.covariance import compute_stds
+
+        # the solve's device state (its stream, step and captured graph) went
+        # with _solve's frame, but for what a cycle of frames holds: on the
+        # CPU the first solve in a process imports torch._dynamo, whose
+        # torch.fx.wrap keeps its own frame, and with it the first step's
+        # frames and tensors.  The stds build their own stream and factors
+        gc.collect()
+        std, Cc_q, method = compute_stds(
+            problem, result.layout, result.x, result.sigma02, device=dev
+        )
+        if std is not None:
+            result.std = std
+            result.Cc_q = Cc_q
+            result.std_method = method
+    return result
+
+
+def _solve(problem, opts, keep_history, x0, progress_fn, checkpoint_path, checkpoint_every,
+           dev) -> DenseResult:
+    """solve_schur's Gauss-Newton solve on `dev`, without the stds; what it
+    held on the device is released when it returns."""
     settings = problem.settings
     layout = ParamLayout(problem)
     use_ic = settings.inner_constraints
@@ -1600,10 +1629,12 @@ def solve_schur(
                  else make_band_plan(problem, layout, opts))
     pairs = (None if band_plan is not None
              else make_pair_plan(problem, layout, opts, dev))
+    mark_stage("layout")
     obs = ObsData.from_problem(
         problem, layout, band_plan, dtype=opts.dtype, device=dev,
         obs_order=opts.obs_order,
     )
+    mark_stage("obs")
     raw_step = schur_step_fn(kernel, layout, use_ic, pairs=pairs)
     (x, history, delta_history, v_local, stats, count, converged,
      elapsed, stopped_on), cg_iterations = drive(
@@ -1618,14 +1649,5 @@ def solve_schur(
         keep_history, stopped_on,
     )
     result.cg_iterations = cg_iterations
-    if compute_covariance:
-        from fish_eye_bundle_adjustment_tpu_torch.solver.covariance import compute_stds
-
-        std, Cc_q, method = compute_stds(
-            problem, layout, result.x, result.sigma02, device=dev
-        )
-        if std is not None:
-            result.std = std
-            result.Cc_q = Cc_q
-            result.std_method = method
+    mark_stage("finalize")
     return result

@@ -102,6 +102,61 @@ def profile_trace(log_dir: Optional[str] = None):
     prof.export_chrome_trace(str(out / f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
+@dataclasses.dataclass
+class Stage:
+    """One stage of a run: its wall seconds, the device's peak allocated
+    bytes within it and the bytes still allocated at its end (0 off a
+    card)."""
+
+    name: str
+    seconds: float
+    peak_bytes: int
+    held_bytes: int
+
+
+# the Stage list that record_stages is filling, and its device and clock
+_stages: dict = {}
+
+
+@contextlib.contextmanager
+def record_stages(device=None):
+    """Record every stage the port marks (mark_stage) inside the block:
+    yields the list of Stage it fills.  On a CUDA `device` each mark
+    synchronizes it and reads, then resets, its peak allocated bytes, so
+    each peak is its stage's own.  Outside the block mark_stage does
+    nothing."""
+    import torch
+
+    dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    log: List[Stage] = []
+    _stages.update(log=log, device=dev, t=time.perf_counter())
+    try:
+        yield log
+    finally:
+        _stages.clear()
+
+
+def mark_stage(name: str) -> None:
+    """End the stage `name`: the time since the last mark (or the start of
+    record_stages), with its device memory."""
+    if not _stages:
+        return
+    import torch
+
+    dev = _stages["device"]
+    peak = held = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        peak, held = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    now = time.perf_counter()
+    _stages["log"].append(Stage(name, now - _stages["t"], peak, held))
+    _stages["t"] = now
+
+
 class Stopwatch:
     def __init__(self):
         self.t0 = time.perf_counter()

@@ -1,8 +1,9 @@
-"""The port's twins of bench_tenk.py and bench_posegraph.py
-(bench_torch_tenk.py, bench_torch_posegraph.py) at a small size on the
-CPU: each prints one JSON line that carries every key of the JAX
-script's committed output (TENK_r05.json, POSEGRAPH_r05.json; nested
-keys too), with the card-only keys null or empty.
+"""The port's twins of bench_tenk.py, bench_posegraph.py and bench_stds.py
+(bench_torch_tenk.py, bench_torch_posegraph.py, bench_torch_stds.py) at a
+small size on the CPU: each prints one JSON line that carries every key of
+the JAX script's committed output (TENK_r05.json, POSEGRAPH_r05.json;
+nested keys too) or, for bench_stds.py, which has none, of its code, with
+the card-only keys null or empty.
 """
 
 import json
@@ -11,6 +12,7 @@ from pathlib import Path
 import pytest
 
 import bench_torch_posegraph
+import bench_torch_stds
 import bench_torch_tenk
 from fish_eye_bundle_adjustment_tpu_torch.utils import observe
 
@@ -52,6 +54,31 @@ def test_posegraph_twin_prints_the_jax_keys(capsys):
     assert got["block_devices"] == ["cpu", "cpu"] and got["startup_s"] == []
     assert len(got["block_solve_s"]) == got["n_blocks"] == 2
     assert set(got["stage_s"]) == {"partition", "blocks", "merge", "refine"}
+
+
+# the keys bench_stds.py prints for each block
+STDS_KEYS = {
+    "accuracy_block": {"n_img", "n_obs", "u", "exact_s", "hutchinson_s", "n_probe",
+                       "median_rel_err", "q90_rel_err", "zero_clip_frac"},
+    "scale_block": {"n_img", "n_obs", "u", "n_probe", "hutchinson_s", "s_per_probe",
+                    "extrapolated_s_at_64_probes", "frac_positive"},
+}
+
+
+def test_stds_twin_prints_the_jax_keys(capsys):
+    """bench_torch_stds.py at two 12-image blocks and 2 probes: bench_stds.py's
+    keys, the estimate's CG solves by class (2 k + k + 2, k = 16) and its
+    stage walls; the card-only keys null."""
+    bench_torch_stds.main(["--cpu", "--accuracy-img", "12", "--accuracy-pts", "150",
+                           "--scale-img", "12", "--scale-pts", "150", "--n-probe", "2"])
+    got = _printed(capsys)
+    assert got["backend"] == "cpu" and got["card"] is None
+    for block, keys in STDS_KEYS.items():
+        b = got[block]
+        assert keys <= set(b) and b["peak_gib"] is None and b["launches"] == {}
+        assert b["cg_solves"] == {"subspace": 32, "deflation": 16, "camera": 1, "point": 1}
+        assert "stds point probes" in b["stage_s"] and b["cg_matvecs"] > 0
+    assert 0 < got["accuracy_block"]["median_rel_err"] < 1
 
 
 @pytest.mark.parametrize("traced", [False, True])
