@@ -14,8 +14,9 @@ CLI, the default solve_schur (the explicit dense S and the stds), the
 stds at the bench block, the distributed solvers of parallel/ on an NCCL
 group, the device loop (the step as a CUDA graph), the pose-graph merge
 (its blocks a process a card over several cards), the mesh's collectives
-as peer-memory kernels at two ranks, and BASELINE configs[5]'s
-10k-image block.  Imports nothing of JAX.  Phases:
+as peer-memory kernels at two ranks, BASELINE configs[5]'s
+10k-image block, and (two cards or more) the distributed solver over two
+emulated hosts.  Imports nothing of JAX.  Phases:
 
   1. environment   torch / CUDA / nvcc versions, card name and power limit
   2. build         nvcc of ops/csrc/*.cu (fusedmv, prefix, streamseg,
@@ -257,6 +258,21 @@ as peer-memory kernels at two ranks, and BASELINE configs[5]'s
                    observation, no plain version called; each stage's wall
                    and peak device memory printed; K4 timed at its float64
                    D = 6 shape on this stream
+ 22. hosts         (run after phase 19) solve_schur_distributed on the
+                   bench block (float64, cap 3, CG 40: phase 16's depth)
+                   over two emulated hosts (parallel/mesh.run_ranks(...,
+                   hosts=2): 2 x 2 cards at four or more, 2 x 1 at two or
+                   three; at one card it prints that it needs two): the
+                   host loop drives it (device_loop=True raises), x bitwise
+                   on every rank and within 1e-8 of the same solve over the
+                   same ranks as one host (the flat peer kernels), K4 by
+                   the CG counts, the host's peer reduce-scatter and
+                   all-gather and the cross-host NCCL calls by the mesh's
+                   counts; the all-reduce of the bench block's tie sum (2.4
+                   MB) and configs[5]'s (23.5 MB) in two levels against the
+                   flat peer kernel and NCCL (times, within 4 ulp of the
+                   summed magnitudes, equal bits on every rank); K4 at a
+                   rank's slice
 
 Each phase prints its own lines; a failing check raises, so the script
 exits non-zero.  Without a CUDA card it exits non-zero before printing
@@ -279,9 +295,10 @@ device loop (phase 17: launches are the warm-up's plus those the
 replays ran, counted on the card), K1 and K2 at the 10k-image block's
 shapes (phase 20: its solve's launches; phase 21: K1 and K2 with the
 launches of the CLI's estimate, K4 at the CLI's float64 solve's stream
-with its launches), and the three peer
+with its launches), K4 at a rank's slice of the solve over two hosts
+(phase 22, two cards or more), and the three peer
 collectives (phase 19's solves' launches,
-with phase 16's over several cards; times of phase 16 over several
+with phase 16's and phase 22's over several cards; times of phase 16 over several
 cards, with NCCL's as the library time, else of phase 19, with gloo's
 where it has the op for CUDA tensors and the reason in `library` where
 not;
@@ -1843,6 +1860,208 @@ def phase_peer(p, stds_p, card):
     return out["coll"], launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the distributed solver over two emulated hosts
+# ---------------------------------------------------------------------------
+
+HOSTS = 2
+HOSTS_X_ATOL = 1e-8  # tests/test_torch_hosts.py: a solve's x
+
+
+def _hosts_sizes(p):
+    """The all-reduces phase 22 times: the bench block's tie sum (2.4 MB)
+    and BASELINE configs[5]'s (23.5 MB), float64 values."""
+    return [("the distributed matvec's tie sum", 3 * _coll_shapes(p)["n_tie"]),
+            ("configs[5]'s tie sum", 3 * TENK_N_TIE)]
+
+
+def _every_rank(obj):
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def solve_counted(m, problem, opts):
+    """solve_schur_distributed(problem) on mesh m, every count set to 0
+    just before it: x, the result's numbers, its wall, the kernels'
+    launches (the peer collectives apart) and plain calls, the CG counts,
+    the driver (and the device loop's counts), the mesh's collectives by
+    operation and by level, and this rank's peak device memory (GiB)."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import dist_schur
+
+    cuda = m.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    schur.reset_cg_counts()
+    m.reset_counts()
+    device_loop.loop_counts.clear()
+    t0 = time.perf_counter()
+    res = dist_schur.solve_schur_distributed(problem, m, opts)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = _read_counts()
+    ran, peer = _split_peer({k: v for k, v in launches.items() if v})
+    return dict(x=res.x, iterations=res.iterations, stopped_on=res.stopped_on,
+                converged=res.converged, sigma02=res.sigma02, cg=res.cg_iterations, wall=wall,
+                launches=ran, peer=peer, plain=plain, cgc=dict(schur.cg_counts),
+                driver="device loop" if device_loop.loop_counts else "host loop",
+                loop=dict(device_loop.loop_counts),
+                counts={k: dict(v) for k, v in m.counts.items()},
+                levels={lv: {k: dict(v) for k, v in c.items()} for lv, c in m.levels.items()},
+                finite=bool(np.isfinite(res.x).all() and np.isfinite(res.v).all()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+
+
+def _hosts_rank(mesh, p, sizes):
+    """Phase 22 on one rank of a group spanning two emulated hosts (every
+    rank alike): solve_schur_distributed at phase 16's depth under its
+    default driver (after one untimed iteration), then the same solve over the same ranks as one host (a
+    Mesh of the peer kernels over every rank, as make_mesh builds on one
+    host), then the all-reduce at `sizes` in two levels against the flat
+    peer kernel and NCCL.  Returns rank 0's numbers."""
+    import torch.distributed as dist
+
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import dist_schur
+    from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import Mesh
+
+    h = mesh.hosts
+    problem = _capped(p, 3)
+    opts = schur.SchurOptions(cg_maxiter=40)
+    out = dict(n_hosts=h.n_hosts, per_host=h.per_host, size=mesh.size,
+               backend=dist.get_backend(), rail=dist.get_backend(h.rail_group))
+
+    # one iteration first, untimed: the rails' NCCL communicators and the
+    # first linearization's set-up stay out of the walls
+    dist_schur.solve_schur_distributed(_capped(p, 1), mesh, opts)
+    out["hosts"] = solve_counted(mesh, problem, opts)
+    out["digests"] = _every_rank(digest(out["hosts"]["x"]))
+    try:
+        dist_schur.solve_schur_distributed(problem, mesh,
+                                           dataclasses.replace(opts, device_loop=True))
+        out["asked"] = None
+    except ValueError as e:
+        out["asked"] = str(e)
+
+    # the same ranks as one host: the peer kernels over all of them
+    flat = peercoll.PeerComm(mesh.device, mesh.index, mesh.size)
+    fmesh = Mesh(device=mesh.device, size=mesh.size, index=mesh.index, comm=flat)
+    out["one host"] = solve_counted(fmesh, problem, dataclasses.replace(opts, device_loop=False))
+
+    rng = np.random.default_rng([22, mesh.index])
+    eps = float(np.finfo(np.float64).eps)
+    out["coll"] = []
+    for what, n in sizes:
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float64, device=mesh.device)
+        peercoll.reset_counts()
+        mesh.reset_counts()
+        two = mesh.psum(x)
+        launches = {k: v for k, v in peercoll.kernel_launches.items() if v}
+        levels = {lv: {k: dict(v) for k, v in c.items() if v["calls"]}
+                  for lv, c in mesh.levels.items()}
+        one = peercoll.all_reduce(x, flat)
+        mag = peercoll.all_reduce(x.abs(), flat)
+        torch.cuda.synchronize()
+        mesh.check()
+        flat.check()
+        diff = (two - one).abs()
+        within = bool((diff <= 4 * eps * mag).all())
+        same = len(set(_every_rank(digest(two.cpu().numpy())))) == 1
+        buf = x.clone()
+        dist.barrier()
+        ms = cuda_ms(lambda: mesh.psum(x), reps=20)
+        flat_ms = cuda_ms(lambda: peercoll.all_reduce(x, flat), reps=20)
+        nccl_ms = cuda_ms(lambda: dist.all_reduce(buf), reps=20)
+        out["coll"].append(dict(what=what, n=n, mbytes=n * 8 / 1e6, ms=ms, flat_ms=flat_ms,
+                                nccl_ms=nccl_ms, max_abs=float(diff.max()), within=within,
+                                same=same, launches=launches, levels=levels))
+    flat.close()
+    return out
+
+
+def phase_hosts(p, card):
+    """solve_schur_distributed over two emulated hosts (parallel/mesh.py's
+    two levels: the peer kernels inside a host, NCCL between hosts): at
+    four cards or more two hosts of two cards, at two or three two hosts of
+    one; at one card it prints that it needs two and returns None.  Holds
+    the solve to the same ranks as one host (x within 1e-8), x bitwise on
+    every rank, the host loop as its driver, K4's launches by the CG counts,
+    the host's peer launches and the cross-host calls by the mesh's counts;
+    times the all-reduce in two levels against the flat peer kernel and
+    NCCL.  Returns the kernel table's numbers: K4 at a rank's slice, with
+    the solve's launches, and the peer launches."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import mesh as pmesh
+
+    tag = "22 hosts"
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[{tag}] needs two cards (two emulated hosts of one card at least); "
+              f"{n} visible: not run")
+        return None
+    per = 2 if n >= 4 else 1
+    ranks = HOSTS * per
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = pmesh.run_ranks(_hosts_rank, ranks, "cuda", args=(p, _hosts_sizes(p)),
+                          timeout_s=600, hosts=HOSTS)
+    r, one = out["hosts"], out["one host"]
+    steps, mv = len(r["cg"]), 8 * (r["cgc"]["host_reads"] - r["cgc"]["calls"])
+    want = {"chunk_prefix": 6 * steps + 2 * mv}
+    calls = r["counts"]["all_reduce"]["calls"]
+    gathers = r["counts"]["all_gather"]["calls"]
+    want_peer = ({} if per == 1 else
+                 {"peer_reduce_scatter": calls, "peer_all_gather": calls + gathers})
+    cross = r["levels"]["cross_host"]
+    want_cross = {"all_reduce": calls, "reduce_scatter": 0, "all_gather": gathers}
+    dx = float(np.abs(r["x"] - one["x"]).max())
+    bitwise = len(set(out["digests"])) == 1
+    print(f"[{tag}] {ranks} NCCL ranks as {out['n_hosts']} emulated hosts of {out['per_host']} "
+          f"card(s) (default group {out['backend']}, rails {out['rail']}): "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    print(f"[{tag}] solve_schur_distributed ({p.n_img} images, {p.n_obs} observations, float64, "
+          f"cap 3, CG 40) over the hosts: driver {r['driver']}, {r['iterations']} iterations, "
+          f"cg {r['cg']}, sigma0^2 {r['sigma02']:.9f}, wall {r['wall']:.2f} s "
+          f"({r['wall'] / steps * 1e3:.1f} ms a step); launches "
+          f"{r['launches']} (want {want}), the host's peer kernels {r['peer']} (want "
+          f"{want_peer}), plain {r['plain']}; collectives {_coll(r['counts'])}; of which across "
+          f"the hosts {_coll(cross)}, a step: "
+          f"{', '.join(f'{op} {c['calls'] / steps:.1f} calls {c['bytes'] / steps / 1e6:.3f} MB' for op, c in cross.items())}; "
+          f"inside them {_coll(r['levels']['local'])}; x bitwise on every rank: {bitwise} "
+          f"(digest {out['digests'][0]}); device_loop=True: {out['asked']} [{card}]")
+    print(f"[{tag}] the same solve over the same ranks as one host (flat peer kernels, host "
+          f"loop): {one['iterations']} iterations, cg {one['cg']}, sigma0^2 "
+          f"{one['sigma02']:.9f}, wall {one['wall']:.2f} s ({one['wall'] / len(one['cg']) * 1e3:.1f} "
+          f"ms a step), launches {one['launches']}, peer "
+          f"{one['peer']}; max |dx| between the two {dx:.3e} (limit {HOSTS_X_ATOL:g}) [{card}]")
+    for c in out["coll"]:
+        print(f"[{tag}] all-reduce of {c['what']} ({c['n']} float64, {c['mbytes']:.1f} MB): two "
+              f"levels {c['ms']:.4f} ms (peer {c['launches']}, calls by level {c['levels']}), "
+              f"flat peer kernel {c['flat_ms']:.4f} ms, NCCL {c['nccl_ms']:.4f} ms; two levels "
+              f"against flat max |d| {c['max_abs']:.3e} (within 4 ulp of the summed magnitudes: "
+              f"{c['within']}), equal bits on every rank: {c['same']} (NCCL between the emulated "
+              f"hosts over its sockets on loopback, not a real network) [{card}]")
+    ok = (out["n_hosts"] == HOSTS and out["per_host"] == per and out["rail"] == "nccl"
+          and r["driver"] == "host loop" and r["finite"] and bitwise
+          and r["launches"] == want and r["peer"] == want_peer and not r["plain"]
+          and {op: c["calls"] for op, c in cross.items()} == want_cross
+          and r["iterations"] == one["iterations"] and dx <= HOSTS_X_ATOL
+          and "spans hosts" in (out["asked"] or "")
+          and all(c["within"] and c["same"] for c in out["coll"]))
+    if not ok:
+        raise RuntimeError(f"[{tag}] FAIL: the solve over two hosts, its counts or its "
+                           "all-reduce are off (lines above)")
+    g = np.random.default_rng(22)
+    n_loc = schur.shard_rows(p.n_obs, ranks)[1]
+    k4 = _k4_check(tag, f"float64 D=6 at a {ranks}-rank slice", torch.as_tensor(
+        g.standard_normal((n_loc, 6)), dtype=torch.float64, device="cuda"))
+    k4["launches"] = r["launches"]["chunk_prefix"]
+    return dict(k4=k4, peer=r["peer"])
+
+
 def phase_shard_kernels(p, layout, plan, dev, card):
     """K1 and K2 on each window of the bench block's band plan split over
     N_SHARDS, on one card: each window folded from its own rows
@@ -2514,6 +2733,9 @@ def main():
     peer_coll, peer_launches = phase_peer(p, stds_p, card)
     print(f"[19 peer collectives] phase 19 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    hosts = phase_hosts(p, card)
+    print(f"[22 hosts] phase 22 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tenk_rows, tenk_launches, tenk_p = phase_tenk(dev, card)
     print(f"[20 tenk] phase 20 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2613,6 +2835,9 @@ def main():
                 peer_launches[k] += v
     for k, v in dist_out["stds"]["peer"].items():
         peer_launches[k] += v
+    if hosts is not None:  # phase 22's solve over two hosts
+        for k, v in hosts["peer"].items():
+            peer_launches[k] += v
     for op in PEER_OPS:
         name = f"peer_{op}"
         r = next(r for r in coll if r["op"] == op and r["dtype"] == "float64")
@@ -2651,6 +2876,16 @@ def main():
             replaces=[REPLACES[kernel]], launches=cli_launches[f"{kernel} (stds)"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        ))
+    # K4 under the solve over two emulated hosts (phase 22, two cards or
+    # more): a rank's slice, the launches of its solve
+    if hosts is not None:
+        r = hosts["k4"]
+        table.append(dict(
+            name="chunk_prefix/hosts", route="cuda", source=SOURCES["chunk_prefix"],
+            replaces=[REPLACES["chunk_prefix"]], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     for probe, r in measured:
         table.append(dict(

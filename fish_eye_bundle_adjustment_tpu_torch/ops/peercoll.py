@@ -32,10 +32,13 @@ to the plain version, whether the library does not build, the peers'
 memory does not open, or a rank never arrives (the kernel's wait is
 bounded: past `PeerComm.spin_s` it gives up, and `check` raises).
 
-A `PeerComm` is one rank's communicator: on a card it allocates the rank's
-workspace (two halves of `workspace_bytes`) and flags in the C source, and
-exchanges the IPC handles over the process group (`dist.all_gather_object`)
-once, before any capture; every rank must see every card.  Its calls must
+A `PeerComm` is one rank's communicator over a process group (the default
+one, or a subgroup: over several hosts, the ranks of one host,
+parallel/mesh.py): on a card it allocates the rank's workspace (two halves
+of `workspace_bytes`) and flags in the C source, and exchanges the IPC
+handles over its group (`dist.all_gather_object`) once, before any
+capture; every rank of the group must see every card of the group, so a
+group never spans hosts.  Its calls must
 be stream-ordered, in the same sequence on every rank.  On the CPU it holds
 only what the plain versions and the plan need.
 
@@ -133,15 +136,16 @@ def plan(op: str, cols: int, elem: int, size: int, half_bytes: int, max_grid: in
 
 
 class PeerComm:
-    """One rank's communicator over the default process group: `size`
-    ranks, this one `rank`, on `device`, with halves of `workspace_bytes`;
-    a launch waits `spin_s` seconds for the other ranks before it gives
-    up."""
+    """One rank's communicator over process group `group` (None: the
+    default one): `size` ranks, this one its rank `rank` there, on
+    `device`, with halves of `workspace_bytes`; a launch waits `spin_s`
+    seconds for the other ranks before it gives up."""
 
     def __init__(self, device, rank: int, size: int, spin_s: float = SPIN_S,
-                 workspace_bytes: int = WORKSPACE_BYTES):
+                 workspace_bytes: int = WORKSPACE_BYTES, group=None):
         self.device = torch.device(device)
         self.rank, self.size = rank, size
+        self.group = group
         self.spin_s = spin_s
         self.workspace_bytes = workspace_bytes
         self.handle: Optional[int] = None  # the C communicator, on a card
@@ -166,7 +170,7 @@ class PeerComm:
         try:
             self.max_grid = lib.peercoll_max_grid(self.handle)
             handles = [None] * self.size
-            dist.all_gather_object(handles, ipc.raw)
+            dist.all_gather_object(handles, ipc.raw, group=self.group)
             _build.check(lib.peercoll_open(self.handle, b"".join(handles)), "peercoll_open")
         except BaseException:
             lib.peercoll_destroy(self.handle)
@@ -196,7 +200,7 @@ class PeerComm:
         from fish_eye_bundle_adjustment_tpu_torch.ops import _build
 
         torch.cuda.synchronize(self.device)
-        dist.barrier()
+        dist.barrier(group=self.group)
         _build.check(_build.load().peercoll_destroy(self.handle), "peercoll_destroy")
         self.handle = None
 
@@ -277,12 +281,12 @@ def _kernel(op, x, comm, cols, chunks):
 
 
 def _gather(t, comm):
-    """Every rank's t in rank order, over the process group (through the
-    host on a gloo group)."""
-    via_host = t.device.type == "cpu" or dist.get_backend() == "gloo"
+    """Every rank's t in rank order, over the communicator's process group
+    (through the host on a gloo group)."""
+    via_host = t.device.type == "cpu" or dist.get_backend(comm.group) == "gloo"
     src = t.cpu() if via_host else t
     parts = [torch.empty_like(src) for _ in range(comm.size)]
-    dist.all_gather(parts, src.contiguous())
+    dist.all_gather(parts, src.contiguous(), group=comm.group)
     return [p.to(t.device) for p in parts]
 
 

@@ -17,7 +17,11 @@ PyTorch port of fish_eye_bundle_adjustment_tpu/parallel/dist_schur.py.
 
 Each rank calls solve_schur_distributed with the same problem and its
 Mesh (parallel/mesh.py) and returns the same result: the residual rows
-are gathered once, after the loop.
+are gathered once, after the loop.  The ranks may span hosts, as in the
+JAX package's multi-process mode (init_distributed(coordinator, n, rank),
+then solve_schur_distributed(problem, make_mesh())): each collective then
+runs in two levels, peer kernels inside a host and NCCL between hosts,
+and the host loop drives the solve.
 """
 
 from __future__ import annotations
@@ -87,7 +91,9 @@ def run_distributed(problem, mesh, opts, step, obs, layout, order, keep_history,
                     compute_covariance, v_rows=None, n_pad=None) -> DenseResult:
     """The GN loop over a distributed step -- the device loop unless
     keep_history or device_loop=False, the JAX package's rule
-    (schur.use_device_loop) at every rank count -- then the result every
+    (schur.use_device_loop) at every rank count, or a mesh that spans
+    hosts (the host loop: its cross-host NCCL calls do not capture) --
+    then the result every
     rank returns: the residual rows gathered and unpermuted, the stds
     (with the mesh) when asked.  Progress and checkpoints are rank 0's.
     `n_pad` is the rank's residual rows when `obs` has no W."""

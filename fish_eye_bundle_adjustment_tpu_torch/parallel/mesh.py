@@ -24,7 +24,8 @@ the CPU gloo's.  NCCL (gloo on the CPU) also carries what is not in a
 step: the group's start, barriers and the peer handles' exchange.
 
 `run_ranks` starts the ranks of one run as processes (spawned, so they
-import this package and torch only) and returns rank 0's result;
+import this package and torch only), as one host or as several emulated
+ones, and returns rank 0's result;
 `spawn_each` is its process pool, which the pose graph's block solves
 take without a process group.
 """
@@ -63,6 +64,48 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 
 _OPS = ("all_reduce", "reduce_scatter", "all_gather")
+_LEVELS = ("local", "cross_host")
+
+
+def _zero_counts():
+    return {op: {"calls": 0, "bytes": 0} for op in _OPS}
+
+
+@dataclasses.dataclass
+class Hosts:
+    """A group's ranks by host: `n_hosts` hosts of `per_host` ranks each,
+    host h holding ranks h * per_host ... (h + 1) * per_host - 1; this
+    rank is rank `local` of host `host`.  `local_group` is the process
+    group of this rank's host, `rail_group` that of the ranks at index
+    `local` of every host (its rank h on host h)."""
+
+    n_hosts: int
+    per_host: int
+    host: int
+    local: int
+    local_group: object = dataclasses.field(default=None, repr=False)
+    rail_group: object = dataclasses.field(default=None, repr=False)
+
+
+def host_layout(names):
+    """(hosts, ranks a host) of a group whose rank r runs on host
+    names[r].  Raises ValueError unless each host's ranks have consecutive
+    rank numbers and every host holds as many."""
+    runs = []  # (host, ranks) in rank order
+    for name in names:
+        if runs and runs[-1][0] == name:
+            runs[-1][1] += 1
+        else:
+            runs.append([name, 1])
+    seen = [h for h, _ in runs]
+    if len(set(seen)) != len(seen):
+        raise ValueError(f"the ranks of one host must have consecutive rank numbers "
+                         f"(as torchrun gives them); hosts by rank: {list(names)}")
+    sizes = {n for _, n in runs}
+    if len(sizes) != 1:
+        raise ValueError(f"every host must hold the same number of ranks; ranks by host: "
+                         f"{ {h: n for h, n in runs} }")
+    return len(runs), sizes.pop()
 
 
 @dataclasses.dataclass
@@ -74,18 +117,29 @@ class Mesh:
     size: int
     index: int
     # calls and bytes sent (the input of each call) by operation
-    counts: dict = dataclasses.field(
-        default_factory=lambda: {op: {"calls": 0, "bytes": 0} for op in _OPS})
-    # the peer kernels' communicator: over several ranks on the card
+    counts: dict = dataclasses.field(default_factory=_zero_counts)
+    # the peer kernels' communicator: over several ranks on the card (over
+    # several hosts: the ranks of this rank's host)
     comm: Optional[peercoll.PeerComm] = dataclasses.field(default=None, repr=False)
+    # the ranks by host, where the group spans hosts (None: one host)
+    hosts: Optional[Hosts] = None
+    # over several hosts, each level's calls and bytes (the input of each
+    # call) by operation: "local" the host's peer collectives (none at one
+    # rank a host), "cross_host" the rail's
+    levels: dict = dataclasses.field(
+        default_factory=lambda: {lv: _zero_counts() for lv in _LEVELS})
 
     def reset_counts(self) -> None:
         for c in self.counts.values():
             c["calls"] = c["bytes"] = 0
+        for level in self.levels.values():
+            for c in level.values():
+                c["calls"] = c["bytes"] = 0
 
-    def _count(self, op, t):
-        count_launch(self.counts[op], "calls", self.device)
-        count_launch(self.counts[op], "bytes", self.device, t.numel() * t.element_size())
+    def _count(self, op, t, counts=None):
+        counts = self.counts if counts is None else counts
+        count_launch(counts[op], "calls", self.device)
+        count_launch(counts[op], "bytes", self.device, t.numel() * t.element_size())
 
     def check(self) -> None:
         """Raise if a peer collective gave up waiting for a rank (after a
@@ -96,6 +150,8 @@ class Mesh:
     def psum(self, x):
         """Sum over the ranks (``psum``): a new tensor, equal on every rank."""
         self._count("all_reduce", x)
+        if self.hosts is not None:
+            return self._psum_hosts(x)
         if self.comm is not None:
             return peercoll.all_reduce(x, self.comm)
         y = x.contiguous().clone()
@@ -106,6 +162,8 @@ class Mesh:
         """Sum over the ranks, then this rank's slice of dim 0
         (``psum_scatter(tiled=True)``): x (size * m, ...) -> (m, ...)."""
         self._count("reduce_scatter", x)
+        if self.hosts is not None:
+            return self._psum_scatter_hosts(x)
         if self.comm is not None:
             return peercoll.reduce_scatter(x, self.comm)
         x = x.contiguous()
@@ -119,6 +177,8 @@ class Mesh:
         """Every rank's x stacked along dim 0 in rank order
         (``all_gather(tiled=True)``): (m, ...) -> (size * m, ...)."""
         self._count("all_gather", x)
+        if self.hosts is not None:
+            return self._all_gather_hosts(x)
         if self.comm is not None:
             return peercoll.all_gather(x, self.comm)
         x = x.contiguous()
@@ -128,6 +188,93 @@ class Mesh:
             dist.all_gather_into_tensor(out, x)
         return out
 
+    # -- over several hosts: the host's peer collective, then the rail's --
+    #
+    # Why two levels and not NCCL over the whole group: each host sends
+    # the network its bytes once, split over its rails (an all-reduce puts
+    # 1x the input out of a host, NCCL's flat ring 1.5x), and inside a
+    # host the peer kernels run.  On 2 emulated hosts x 2 H100s (700 W)
+    # whose NCCL takes its socket transport between them
+    # (bench_torch_hosts.py coll) the three collectives took 0.64-0.83x
+    # the time of NCCL's over the whole group at 2.4 and 23.5 MB; where
+    # NCCL sees one machine and crosses the "hosts" over NVLink, they lose
+    # to it (1.3-1.4x at the same sizes).
+    #
+    # The sums: a value of rank (h, l) -- rank l of host h -- is summed
+    # first over the ranks of its host in local order (((x_h0 + x_h1) +
+    # x_h2) + ..., the peer reduce-scatter's order, one rank of the host
+    # holding each column), then over the hosts by the rail's collective:
+    # NCCL's on the card, gloo's on the CPU.  With two hosts that is one
+    # addition, which commutes; past two both reduce each column on one
+    # rank of the rail and hand the result on, so every rank of the rail
+    # holds the same bits, and the local all-gather gives them to the
+    # host: a psum is equal bit for bit on every rank.
+
+    def _local(self, op, x):
+        """Collective `op` of 1-D x over this rank's host: the peer kernel
+        on the card, its plain version on the CPU (ops/peercoll.py); x
+        itself at one rank a host."""
+        if self.hosts.per_host == 1:
+            return x
+        self._count(op, x, self.levels["local"])
+        return getattr(peercoll, op)(x, self.comm)
+
+    def _rail(self, op, x):
+        """Collective `op` of 1-D x over the rail (NCCL's or gloo's)."""
+        self._count(op, x, self.levels["cross_host"])
+        group, n = self.hosts.rail_group, self.hosts.n_hosts
+        if op == "all_reduce":
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+            return x
+        with warnings.catch_warnings():
+            _quiet_deprecation()
+            if op == "reduce_scatter":
+                out = x.new_empty(x.numel() // n)
+                dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+            else:
+                out = x.new_empty(x.numel() * n)
+                dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    def _psum_hosts(self, x):
+        """The all-reduce in two levels: x's values cut into per_host
+        slices (zeros padding the last: a pad is a column of its own, so
+        no sum takes it), each local rank's slice summed over the host,
+        then over the rail, then gathered over the host."""
+        per = self.hosts.per_host
+        flat = x.contiguous().reshape(-1)
+        n = flat.numel()
+        m = -(-n // per)
+        padded = torch.nn.functional.pad(flat, (0, m * per - n)) if m * per != n else flat
+        part = self._local("reduce_scatter", padded)
+        if part is padded:
+            part = padded.clone()
+        part = self._rail("all_reduce", part)
+        return self._local("all_gather", part)[:n].reshape(x.shape)
+
+    def _psum_scatter_hosts(self, x):
+        """The reduce-scatter in two levels, rows in rank order: rank (h,
+        l)'s rows are block h * per_host + l of x.  The blocks are put in
+        (l, h) order, so that the host's reduce-scatter gives local rank l
+        the blocks of every host's rank l, summed over the host; the
+        rail's reduce-scatter then gives host h its block."""
+        n_hosts, per = self.hosts.n_hosts, self.hosts.per_host
+        rows = x.shape[0] // self.size
+        blocks = x.contiguous().reshape(n_hosts, per, -1).transpose(0, 1).reshape(-1)
+        part = self._local("reduce_scatter", blocks)
+        out = self._rail("reduce_scatter", part.contiguous())
+        return out.reshape((rows,) + tuple(x.shape[1:]))
+
+    def _all_gather_hosts(self, x):
+        """The all-gather in two levels, rows in rank order: the rail's
+        gather (host h's block h), then the host's (local rank l's block
+        l), the blocks put back from (l, h) to rank order (h, l)."""
+        n_hosts, per = self.hosts.n_hosts, self.hosts.per_host
+        rail = self._rail("all_gather", x.contiguous().reshape(-1))
+        full = self._local("all_gather", rail)
+        full = full.reshape(per, n_hosts, -1).transpose(0, 1)
+        return full.reshape((x.shape[0] * self.size,) + tuple(x.shape[1:]))
+
 
 def _quiet_deprecation():
     """Recent PyTorch marks reduce_scatter_tensor and
@@ -136,42 +283,86 @@ def _quiet_deprecation():
     warnings.filterwarnings("ignore", category=FutureWarning, message=".*is deprecated")
 
 
-# this process's device in the default group, and its peer communicator
-# (over several ranks on the card: one a group, opened by the first
-# make_mesh, closed by shutdown)
-_STATE = {"device": None, "comm": None}
+# this process's device in the default group, each rank's host, and its
+# peer communicator (over several ranks on the card: one a group -- over
+# several hosts, over the ranks of this one --, opened by the first
+# make_mesh, closed by shutdown) and host groups (made by the first make_mesh)
+_STATE = {"device": None, "comm": None, "host_names": None, "hosts": None}
 
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      device=None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     host: Optional[str] = None) -> torch.device:
     """Join the default process group as rank `process_id` of
     `num_processes`, meeting the others at `coordinator`
     ("tcp://host:port" or "file://path"; None: the torchrun environment).  `device` is this
-    rank's device: "cuda" means cuda:<rank>, and a CUDA device takes NCCL,
-    the CPU gloo -- never the one in place of the other.  Returns the
+    rank's device: "cuda" means cuda:<its index among the ranks of its
+    host>, and a CUDA device takes NCCL, the CPU gloo -- never the one in
+    place of the other.  `host` names this rank's host (default: its host
+    name); the ranks swap their hosts once, through the group's store, and
+    make_mesh cuts the group by them.  Giving ranks of one machine other
+    names emulates several hosts there.  Under torchrun the host names must
+    agree with its LOCAL_RANK and LOCAL_WORLD_SIZE, or it raises (machines
+    that share a name would otherwise make one host).  Returns the
     device."""
-    if device is None or str(device) == "cuda":
-        device = f"cuda:{process_id if process_id is not None else _local_rank()}"
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("init_distributed: no CUDA device; pass device='cpu'")
-        torch.cuda.set_device(dev)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    cuda = device is None or torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("init_distributed: no CUDA device; pass device='cpu'")
+    backend = "nccl" if cuda else "gloo"
     kw = dict(backend=backend, timeout=datetime.timedelta(seconds=timeout_s))
     if coordinator is not None:
         kw.update(init_method=coordinator, world_size=num_processes, rank=process_id)
     dist.init_process_group(**kw)
-    _STATE["device"] = dev
+    names = _swap_hosts(socket.gethostname() if host is None else str(host))
+    rank = dist.get_rank()
+    local = (sum(1 for n in names[:rank] if n == names[rank]), names.count(names[rank]))
+    launcher = (os.environ.get("LOCAL_RANK"), os.environ.get("LOCAL_WORLD_SIZE"))
+    if coordinator is None and host is None and None not in launcher \
+            and local != tuple(int(v) for v in launcher):
+        raise RuntimeError(
+            f"init_distributed: rank {rank} is local rank {launcher[0]} of {launcher[1]} to "
+            f"torchrun but {local[0]} of {local[1]} by its host name {names[rank]!r}: "
+            "machines that share a host name? Give each its own (host=)")
+    if device is None or str(device) == "cuda":
+        device = f"cuda:{local[0]}"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _STATE.update(device=dev, host_names=names)
     return dev
 
 
-def _local_rank() -> int:
-    """This process's index among the ranks of its host (torchrun's)."""
-    return int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+def _swap_hosts(name: str):
+    """Every rank's host name, in rank order, through the default group's
+    store (no collective: no device is needed yet)."""
+    store = dist.distributed_c10d._get_default_store()
+    store.set(f"fisheye_ba_host/{dist.get_rank()}", name)
+    return [store.get(f"fisheye_ba_host/{r}").decode()
+            for r in range(dist.get_world_size())]
+
+
+def _host_groups(names) -> Optional[Hosts]:
+    """The group's Hosts where its ranks span several hosts (None on one):
+    every rank makes every local group, then every rail group, in that
+    order (dist.new_group is collective)."""
+    n_hosts, per = host_layout(names)
+    if n_hosts == 1:
+        return None
+    rank = dist.get_rank()
+    host, local = divmod(rank, per)
+    out = Hosts(n_hosts=n_hosts, per_host=per, host=host, local=local)
+    for h in range(n_hosts):
+        g = dist.new_group(list(range(h * per, (h + 1) * per)))
+        if h == host:
+            out.local_group = g
+    for i in range(per):
+        g = dist.new_group([h * per + i for h in range(n_hosts)])
+        if i == local:
+            out.rail_group = g
+    return out
 
 
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -180,16 +371,27 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     size: a rank cannot take part in a smaller mesh.  Over several ranks
     on the card the first call opens the group's peer communicator
     (collective: every rank calls it), which every later Mesh of the group
-    shares."""
+    shares.  Where the ranks span hosts, the first call also makes the
+    local and rail groups (module docstring; it raises unless each host's
+    ranks are consecutive and every host holds as many), and the peer
+    communicator is over the ranks of this host (on the CPU too: its plain
+    versions are the local level there)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call init_distributed first")
     size = dist.get_world_size()
     if n_devices is not None and n_devices != size:
         raise ValueError(f"make_mesh: the process group has {size} ranks, not {n_devices}")
     dev, rank = _STATE["device"], dist.get_rank()
-    if dev.type == "cuda" and size > 1 and _STATE["comm"] is None:
-        _STATE["comm"] = peercoll.PeerComm(dev, rank, size)
-    return Mesh(device=dev, size=size, index=rank, comm=_STATE["comm"])
+    if _STATE["hosts"] is None:
+        _STATE["hosts"] = _host_groups(_STATE["host_names"] or [""] * size)
+    hosts = _STATE["hosts"]
+    if _STATE["comm"] is None:
+        if hosts is not None and hosts.per_host > 1:
+            _STATE["comm"] = peercoll.PeerComm(dev, hosts.local, hosts.per_host,
+                                               group=hosts.local_group)
+        elif hosts is None and dev.type == "cuda" and size > 1:
+            _STATE["comm"] = peercoll.PeerComm(dev, rank, size)
+    return Mesh(device=dev, size=size, index=rank, comm=_STATE["comm"], hosts=hosts)
 
 
 def shutdown() -> None:
@@ -198,7 +400,7 @@ def shutdown() -> None:
         if _STATE["comm"] is not None:
             _STATE["comm"].close()
         dist.destroy_process_group()
-    _STATE.update(device=None, comm=None)
+    _STATE.update(device=None, comm=None, host_names=None, hosts=None)
 
 
 # ---------------------------------------------------------------------------
@@ -281,27 +483,43 @@ def spawn_each(fn, arg_lists, timeout_s: float = DEFAULT_TIMEOUT_S, threads: int
         return out
 
 
-def _rank_main(rank, n, coordinator, device, fn, args, timeout_s):
-    """One rank: join the group, run fn(mesh, *args), leave; rank 0's
-    result (the others return None)."""
+def _rank_main(rank, n, coordinator, device, fn, args, timeout_s, hosts=1):
+    """One rank: join the group (as a rank of emulated host rank // (n //
+    hosts)), run fn(mesh, *args), leave; rank 0's result (the others
+    return None)."""
     dev = "cpu" if str(device) == "cpu" else f"cuda:{rank}"
-    init_distributed(coordinator, n, rank, dev, timeout_s=timeout_s)
+    host = f"{socket.gethostname()}/{rank // (n // hosts)}"
+    if hosts > 1 and dev != "cpu":
+        # NCCL too tells the emulated hosts apart: between them it takes its
+        # network transport (sockets over loopback), as between machines
+        os.environ["NCCL_HOSTID"] = host
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed(coordinator, n, rank, dev, timeout_s=timeout_s, host=host)
     result = fn(make_mesh(), *args)
     shutdown()
     return result if rank == 0 else None
 
 
 def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEOUT_S,
-              collective_timeout_s: Optional[float] = None):
+              collective_timeout_s: Optional[float] = None, hosts: int = 1):
     """Run fn(mesh, *args) on `n` ranks, each a spawned process
     (spawn_each): rank r on cuda:r over NCCL (device None or "cuda";
     without a card it raises), or on the CPU over gloo when asked (device
-    "cpu").  `fn` must be a module-level function, and what it returns
-    picklable.  Returns rank 0's result.  A failing rank fails the run with
-    its traceback; past `timeout_s` every rank is stopped and the run
-    raises TimeoutError.  Each rank runs torch on one thread."""
+    "cpu").  The ranks act as `hosts` emulated hosts of n // hosts ranks
+    each, rank r on host r // (n // hosts): over several, make_mesh gives a
+    Mesh of two levels, as on as many machines, and on the card NCCL too
+    is told the hosts apart (NCCL_HOSTID) and crosses them over its
+    sockets on loopback (NCCL_SOCKET_IFNAME "lo" unless set).  Real
+    hosts join through torchrun --nnodes, or init_distributed with a
+    coordinator, as the CLI does under WORLD_SIZE.  `fn` must be a
+    module-level function, and what it returns picklable.  Returns rank
+    0's result.  A failing rank fails the run with its traceback; past
+    `timeout_s` every rank is stopped and the run raises TimeoutError.
+    Each rank runs torch on one thread."""
     from fish_eye_bundle_adjustment_tpu_torch.solver.dense import resolve_device
 
+    if hosts < 1 or n % hosts:
+        raise ValueError(f"run_ranks: {n} ranks do not make {hosts} hosts of equal size")
     device = resolve_device(device, "run_ranks")
     if device.type != "cpu":
         have = torch.cuda.device_count()
@@ -312,6 +530,6 @@ def run_ranks(fn, n: int, device=None, args=(), timeout_s: float = DEFAULT_TIMEO
         # the ranks meet at a file of the run's own directory: no port to
         # pick, which another process could take before rank 0 listens
         coordinator = f"file://{Path(meet) / 'rendezvous'}"
-        return spawn_each(_rank_main, [(r, n, coordinator, device, fn, args, coll_s)
+        return spawn_each(_rank_main, [(r, n, coordinator, device, fn, args, coll_s, hosts)
                                        for r in range(n)],
                           timeout_s, threads=1, what="run_ranks")[0]

@@ -1515,18 +1515,23 @@ def make_pair_plan(problem, layout, opts: SchurOptions, device="cpu"):
     )
 
 
-def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None) -> bool:
+def use_device_loop(opts: SchurOptions, keep_history: bool, pairs=None, mesh=None) -> bool:
     """Whether the device loop drives a solve: at device_loop=None the JAX
     package's rule (no explicit dense S, no kept history), False the host
     loop.  device_loop=True where the device loop does not apply raises,
     where the JAX package runs the host loop silently.  The rule is the same
-    at every rank count: over several ranks on the card the mesh's
-    collectives are kernels (ops/peercoll.py) that the graph's IF nodes
-    hold."""
+    at every rank count on one host: over several ranks on the card the
+    mesh's collectives are kernels (ops/peercoll.py) that the graph's IF
+    nodes hold.  A `mesh` whose ranks span hosts takes the host loop: its
+    collectives cross hosts over NCCL, which does not capture inside the
+    IF nodes (the JAX package's XLA loop does run across hosts)."""
     if opts.device_loop is False:
         return False
     why = ("the explicit dense S (a PairPlan) runs the host loop" if pairs is not None
            else "keep_history runs the host loop" if keep_history
+           else "a mesh that spans hosts runs the host loop (NCCL between hosts does not "
+                "capture inside the device loop's IF nodes)"
+           if mesh is not None and mesh.hosts is not None
            else None)
     if why is None:
         return True
@@ -1542,7 +1547,7 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
     loops' common keywords (x0, progress_fn, checkpoint_path,
     checkpoint_every, device); `n_pad` and `mesh` (the Mesh of a
     distributed step) go to the device loop."""
-    if use_device_loop(opts, keep_history, pairs):
+    if use_device_loop(opts, keep_history, pairs, mesh):
         from fish_eye_bundle_adjustment_tpu_torch.solver.device_loop import run_gn_loop_device
 
         cg_iterations = []

@@ -1,6 +1,7 @@
 """Rank workers of the port's torch.distributed parity tests
 (tests/test_torch_mesh.py, test_torch_dist_schur.py,
-test_torch_sharded_state.py, test_torch_fusedshard.py).
+test_torch_sharded_state.py, test_torch_fusedshard.py,
+test_torch_hosts.py).
 
 The ranks are processes that parallel.mesh.run_ranks spawns: they import
 this module, torch and the port, never jax.  A test module starts one
@@ -19,13 +20,14 @@ GROUP_TIMEOUT_S = 240.0
 COLLECTIVE_TIMEOUT_S = 60.0
 
 
-def run_group(n_ranks, cases):
+def run_group(n_ranks, cases, hosts=1):
     """Run `cases` ({name: (function name, keyword arguments)}) on
-    `n_ranks` gloo ranks on the CPU; {name: rank 0's result}."""
+    `n_ranks` gloo ranks on the CPU, as `hosts` emulated hosts; {name:
+    rank 0's result}."""
     from fish_eye_bundle_adjustment_tpu_torch.parallel.mesh import run_ranks
 
     return run_ranks(_run_cases, n_ranks, "cpu", args=(cases,), timeout_s=GROUP_TIMEOUT_S,
-                     collective_timeout_s=COLLECTIVE_TIMEOUT_S)
+                     collective_timeout_s=COLLECTIVE_TIMEOUT_S, hosts=hosts)
 
 
 def _run_cases(mesh, cases):
@@ -272,4 +274,152 @@ def mesh_stds(mesh, problem, x, sigma02, n_probe, seed=0):
     std = estimate_schur_stds(problem, ParamLayout(problem), x, sigma02, n_probe=n_probe,
                               seed=seed, mesh=mesh)
     return dict(std=std, plain_k4=prefix.plain_calls["chunk_prefix"],
-                counts={k: dict(v) for k, v in mesh.counts.items()})
+                counts={k: dict(v) for k, v in mesh.counts.items()},
+                levels={lv: {k: dict(v) for k, v in c.items()} for lv, c in mesh.levels.items()})
+
+
+# -- a group that spans hosts (parallel/mesh.py's two levels) ---------------
+
+def _every_rank(obj):
+    """obj of every rank, in rank order (on every rank)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def host_table(mesh, refused):
+    """Every rank's place in the mesh's hosts (its host, local index, its
+    local and rail groups' ranks), and the ValueError make_mesh raises for
+    each host table of `refused` (every rank alike, before any group is
+    made)."""
+    import torch.distributed as dist
+
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import mesh as pmesh
+
+    h = mesh.hosts
+    mine = dict(index=mesh.index, size=mesh.size, n_hosts=h.n_hosts, per_host=h.per_host,
+                host=h.host, local=h.local,
+                local_ranks=dist.get_process_group_ranks(h.local_group),
+                rail_ranks=dist.get_process_group_ranks(h.rail_group),
+                comm=(mesh.comm.rank, mesh.comm.size), names=list(pmesh._STATE["host_names"]))
+    errors = {}
+    kept = dict(pmesh._STATE)
+    for name, names in refused.items():
+        pmesh._STATE.update(hosts=None, host_names=list(names))
+        try:
+            pmesh.make_mesh()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+        finally:
+            pmesh._STATE.update(kept)
+    return dict(ranks=_every_rank(mine), errors=errors,
+                again=pmesh.make_mesh().hosts is h)
+
+
+def host_inputs(rank, size, dtype, seed=0):
+    """Rank `rank`'s inputs of the two-level cases, by name: (op, array);
+    lengths and rows that the two ranks of a host do not divide.  Every
+    rank makes every rank's from the seed, so the test can."""
+    g = np.random.default_rng([seed, rank])
+    r = lambda *shape: (g.standard_normal(shape) * 10.0 ** g.integers(-3, 4, shape)).astype(dtype)
+    return {
+        "scalar": ("all_reduce", r()),
+        "odd": ("all_reduce", r(1001)),
+        "matrix": ("all_reduce", r(5, 3)),
+        "blocks": ("reduce_scatter", r(size * 3, 5)),
+        "odd_rows": ("reduce_scatter", r(size * 7)),
+        "rows": ("all_gather", r(3, 2)),
+        "odd_gather": ("all_gather", r(5)),
+    }
+
+
+_MESH_OP = {"all_reduce": "psum", "reduce_scatter": "psum_scatter", "all_gather": "all_gather"}
+
+
+def host_collectives(mesh, seed=0):
+    """Each case of host_inputs in float32 and float64 through the mesh's
+    two levels and through the flat plain collectives over the whole group
+    (ops/peercoll.py on the CPU: rank-ordered sums), with the levels'
+    counts: {(name, dtype): dict(two=[every rank's], flat=[every rank's],
+    counts, levels)}."""
+    from fish_eye_bundle_adjustment_tpu_torch.ops import peercoll
+
+    flat = peercoll.PeerComm("cpu", mesh.index, mesh.size)
+    out = {}
+    for dtype in ("float32", "float64"):
+        for name, (op, x) in host_inputs(mesh.index, mesh.size, dtype, seed).items():
+            mesh.reset_counts()
+            t = torch.as_tensor(x)
+            two = getattr(mesh, _MESH_OP[op])(t)
+            out[(name, dtype)] = dict(
+                two=_every_rank(_np(two)), flat=_every_rank(_np(getattr(peercoll, op)(t, flat))),
+                counts={k: dict(v) for k, v in mesh.counts.items()},
+                levels={lv: {k: dict(v) for k, v in c.items()} for lv, c in mesh.levels.items()},
+                input_unchanged=bool(np.array_equal(_np(t), x)))
+    return out
+
+
+def step_stream(mesh, problem, opts, steps, cg_tol):
+    """`steps` GN steps of make_distributed_step at lam 0 from x0, each
+    from the last (tests/test_multiprocess.py's stream): the L1(delta) of
+    each, the x reached, and whether every rank holds its bits."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import make_distributed_step
+
+    fn, data, layout, _ = make_distributed_step(problem, mesh, _opts(opts))
+    x = torch.as_tensor(layout.initial(), device=mesh.device)
+    deltas = []
+    for _ in range(steps):
+        x, d, _, _, _ = fn(x, data, cg_tol, 0.0)
+        deltas.append(float(d))
+    xs = _every_rank(_np(x))
+    return dict(deltas=deltas, x=xs[0], bitwise=all(np.array_equal(v, xs[0]) for v in xs))
+
+
+def host_solve(mesh, mode, problem, opts, **kw):
+    """solve() on this mesh, with each level's collectives and whether
+    every rank returned the same bits of x."""
+    out = solve(mesh, mode, problem, opts, **kw)
+    xs = _every_rank(out["x"])
+    out["bitwise"] = all(np.array_equal(v, xs[0]) for v in xs)
+    out["levels"] = {lv: {k: dict(v) for k, v in c.items()} for lv, c in mesh.levels.items()}
+    return out
+
+
+def host_dispatch(mesh, problem):
+    """The device-loop rule on this mesh: device_loop None and True, and
+    what a solve at True raises."""
+    from fish_eye_bundle_adjustment_tpu_torch.parallel.dist_schur import solve_schur_distributed
+    from fish_eye_bundle_adjustment_tpu_torch.solver.schur import SchurOptions, use_device_loop
+
+    out = dict(default=use_device_loop(SchurOptions(), False, mesh=mesh))
+    for how, call in (("rule", lambda: use_device_loop(SchurOptions(device_loop=True), False,
+                                                       mesh=mesh)),
+                      ("solve", lambda: solve_schur_distributed(
+                          problem, mesh, SchurOptions(device_loop=True)))):
+        try:
+            call()
+            out[how] = None
+        except ValueError as e:
+            out[how] = str(e)
+    return out
+
+
+def torchrun_rank(rank, n, port, local_rank, local_world_size):
+    """One rank joining as torchrun starts it (the environment, no
+    coordinator), on the CPU, with torchrun's LOCAL_RANK and
+    LOCAL_WORLD_SIZE as given: the mesh's hosts, then leave."""
+    import os
+
+    from fish_eye_bundle_adjustment_tpu_torch.parallel import mesh as pmesh
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(n), LOCAL_RANK=str(local_rank),
+                      LOCAL_WORLD_SIZE=str(local_world_size))
+    pmesh.init_distributed(device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    try:
+        return pmesh.make_mesh().hosts
+    finally:
+        pmesh.shutdown()

@@ -290,10 +290,11 @@ def test_fused_f32_matches_jax():
 def test_dispatch_follows_the_jax_rule():
     """device_loop=None takes the device loop exactly where the JAX
     package's solve_schur does (no explicit dense S, no kept history);
-    False always the host loop; True raises only for those two cases.  The
-    rule is the same at every rank count and device: it takes neither (over
-    several ranks on the card the collectives are the peer kernels that
-    the graph's IF nodes hold), and True no longer raises for ranks."""
+    False always the host loop; True raises only for those two cases (and
+    for a mesh that spans hosts: tests/test_torch_hosts.py).  The rule is
+    the same at every rank count and device on one host: it takes neither
+    (over several ranks on the card the collectives are the peer kernels
+    that the graph's IF nodes hold), and True no longer raises for ranks."""
     default = tschur.SchurOptions()
     assert tschur.use_device_loop(default, False)
     assert not tschur.use_device_loop(default, False, pairs=object())
@@ -301,7 +302,7 @@ def test_dispatch_follows_the_jax_rule():
     assert not tschur.use_device_loop(tschur.SchurOptions(device_loop=False), False)
     asked = tschur.SchurOptions(device_loop=True)
     assert list(inspect.signature(tschur.use_device_loop).parameters) == [
-        "opts", "keep_history", "pairs"]
+        "opts", "keep_history", "pairs", "mesh"]
     assert tschur.use_device_loop(asked, False)
     with pytest.raises(ValueError, match="device_loop=True: keep_history"):
         tschur.use_device_loop(asked, True)

@@ -127,8 +127,8 @@ def test_port_imports_no_jax():
     native parser, the reports, plots and CLI included), chip_smoke.py,
     the bench twins (bench_torch_*.py, the tenk and pose-graph ones
     included), bench_torch_parallel.py, bench_torch_block.py,
-    bench_torch_cli.py and bench_torch_stds.py in a fresh interpreter leaves
-    jax out of sys.modules."""
+    bench_torch_cli.py, bench_torch_stds.py and bench_torch_hosts.py in a
+    fresh interpreter leaves jax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fish_eye_bundle_adjustment_tpu_torch as pkg\n"
@@ -142,7 +142,7 @@ def test_port_imports_no_jax():
         "import chip_smoke, bench_torch_streamseg, bench_torch_pallas_gather\n"
         "import bench_torch_pallas_onehot, bench_torch_fusedmv, bench_torch_parallel\n"
         "import bench_torch_tenk, bench_torch_posegraph, bench_torch_block\n"
-        "import bench_torch_cli, bench_torch_stds\n"
+        "import bench_torch_cli, bench_torch_stds, bench_torch_hosts\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('fish_eye_bundle_adjustment_tpu.'))\n"
         "assert not bad, bad\n"
