@@ -84,6 +84,11 @@ _SIGNATURES = {
     # stream pred child capture_mode
     "graphcond_begin_if": ([_P, _P, _P, _I], _I),
     "graphcond_end": ([_P], _I),
+    "stamp_abi_version": ([], _I),
+    # ring head capacity tag stream
+    "stamp_record": ([_P, _P, _L, _L, _P], _I),
+    # out n stream
+    "stamp_ticks": ([_P, _I, _P], _I),
     "peercoll_abi_version": ([], _I),
     "peercoll_max_ranks": ([], _I),
     # device rank size half_bytes limit_s | comm_out handle_out
@@ -98,7 +103,7 @@ _SIGNATURES = {
     "peercoll_destroy": ([_P], _I),
 }
 _ABI = {"fusedmv": 5, "prefix": 2, "streamseg": 2, "gather": 1, "scatter": 2,
-        "graphcond": 1, "peercoll": 2}
+        "graphcond": 1, "peercoll": 2, "stamp": 1}
 
 
 def _nvcc() -> str:

@@ -53,6 +53,11 @@ way) hold the warm-up's plus what the replays ran, an IF node that was
 off counting nothing; the CG counters hold the warm-up's.  Solves in
 other processes (the pose graph's block solves, a process a card) move
 their own counters, which the caller adds (add_counter_moves).
+
+Under a trace (utils/observe.trace) the loop's phases are host spans
+(loop.setup, loop.warmup, loop.capture, loop.replays, loop.teardown) and
+each step a device span (``gn.step``: a pair of stamps captured into the
+step's IF body), read back in the teardown.
 """
 
 from __future__ import annotations
@@ -69,11 +74,14 @@ from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import (
     capture_lock,
     run_if,
 )
+from fish_eye_bundle_adjustment_tpu_torch.utils import observe
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
     IterationRecord,
     SolverDivergence,
     Stopwatch,
-    mark_stage,
+    collect_stamps,
+    device_span,
+    span,
 )
 
 # status codes carried on device
@@ -124,7 +132,8 @@ def _counters(mesh=None):
            "prefix_plain": prefix.plain_calls, "streamseg": streamseg.kernel_launches,
            "streamseg_plain": streamseg.plain_calls, "probes": probes.kernel_launches,
            "probes_plain": probes.plain_calls, "peercoll": peercoll.kernel_launches,
-           "peercoll_plain": peercoll.plain_calls, "cg": schur.cg_counts}
+           "peercoll_plain": peercoll.plain_calls, "stamp": observe.stamp_launches,
+           "cg": schur.cg_counts}
     if mesh is not None:
         out["mesh"] = mesh.counts
     return out
@@ -250,6 +259,10 @@ def _make_body(raw_step, obs, opts, settings, dtype, st, recs, ri, si):
         )
 
     def body():
+        with device_span("gn.step", st["x"]):
+            step()
+
+    def step():
         s = dict(st)
         # a step ran (the JAX while_loop's condition held): every body is
         # masked by it, so a body past the stop leaves the state alone
@@ -375,45 +388,47 @@ def run_gn_loop_device(
 
     sdt = torch_dtype(opts.dtype)
     t0 = time.perf_counter()
-    x = torch.as_tensor(
-        (layout.initial() if x0 is None else np.asarray(x0)).astype(opts.dtype), device=dev)
-    delta_history: list = []
-    count = 0
-    cg_tol0 = opts.forcing_max if opts.adaptive_forcing else opts.cg_tol
-    delta0 = 0.0
-    if checkpoint_path is not None:
-        resumed = ckpt_mod.load_checkpoint(checkpoint_path, problem)
-        if resumed is not None:
-            x = torch.as_tensor(resumed.x.astype(opts.dtype), device=dev)
-            count = resumed.iteration
-            delta_history = list(resumed.delta_history)
-            if delta_history:
-                delta0 = max(delta_history[0], 1e-300)
-                rel = delta_history[-1] / delta0
-                cg_tol0 = max(opts.cg_tol, min(opts.forcing_max, rel * rel))
-    watch = Stopwatch()
-    if n_pad is None:
-        n_pad = obs.W.shape[0]
-    st = _init_state(x, n_pad, count, cg_tol0, delta0, delta_history, opts, sdt, dev)
-    nrec = 2 * chunk + 2
-    recs = torch.zeros((nrec, N_COLS), dtype=sdt, device=dev)
-    ri = torch.zeros((), dtype=torch.long, device=dev)
-    si = torch.zeros((), dtype=torch.long, device=dev)
-    body = _make_body(raw_step, obs, opts, settings, opts.dtype, st, recs, ri, si)
+    # x0 on the device, the state, the record buffer and the host slots
+    with span("loop.setup"):
+        x = torch.as_tensor(
+            (layout.initial() if x0 is None else np.asarray(x0)).astype(opts.dtype), device=dev)
+        delta_history: list = []
+        count = 0
+        cg_tol0 = opts.forcing_max if opts.adaptive_forcing else opts.cg_tol
+        delta0 = 0.0
+        if checkpoint_path is not None:
+            resumed = ckpt_mod.load_checkpoint(checkpoint_path, problem)
+            if resumed is not None:
+                x = torch.as_tensor(resumed.x.astype(opts.dtype), device=dev)
+                count = resumed.iteration
+                delta_history = list(resumed.delta_history)
+                if delta_history:
+                    delta0 = max(delta_history[0], 1e-300)
+                    rel = delta_history[-1] / delta0
+                    cg_tol0 = max(opts.cg_tol, min(opts.forcing_max, rel * rel))
+        watch = Stopwatch()
+        if n_pad is None:
+            n_pad = obs.W.shape[0]
+        st = _init_state(x, n_pad, count, cg_tol0, delta0, delta_history, opts, sdt, dev)
+        nrec = 2 * chunk + 2
+        recs = torch.zeros((nrec, N_COLS), dtype=sdt, device=dev)
+        ri = torch.zeros((), dtype=torch.long, device=dev)
+        si = torch.zeros((), dtype=torch.long, device=dev)
+        body = _make_body(raw_step, obs, opts, settings, opts.dtype, st, recs, ri, si)
 
-    def gated():
-        # the JAX while_loop's condition (status == RUNNING): each body writes
-        # at most 2 records, so the buffer's bound never binds within a chunk
-        run_if(st["status"] == RUNNING, body)
+        def gated():
+            # the JAX while_loop's condition (status == RUNNING): each body writes
+            # at most 2 records, so the buffer's bound never binds within a chunk
+            run_if(st["status"] == RUNNING, body)
 
-    counters = _counters(mesh)
-    info = dict(graph=capture, capture_s=0.0, warmup={}, per_body={}, replays=0, steps=0,
-                reads=0, loop_s=0.0, capture_reserved_bytes=0, replayed={})
-    graph = None
-    # two pinned host buffers for the packed reads and their events, taken
-    # in turn: a chunk's read is in flight while the next chunk runs
-    slots = ([(torch.empty(nrec * N_COLS + 3, pin_memory=True), torch.cuda.Event())
-              for _ in range(2)] if dev.type == "cuda" else [])
+        counters = _counters(mesh)
+        info = dict(graph=capture, capture_s=0.0, warmup={}, per_body={}, replays=0, steps=0,
+                    reads=0, loop_s=0.0, capture_reserved_bytes=0, replayed={})
+        graph = None
+        # two pinned host buffers for the packed reads and their events, taken
+        # in turn: a chunk's read is in flight while the next chunk runs
+        slots = ([(torch.empty(nrec * N_COLS + 3, pin_memory=True), torch.cuda.Event())
+                  for _ in range(2)] if dev.type == "cuda" else [])
     with device_cg():
         if capture:
             # the bodies that count launches: the step and each CG block
@@ -446,69 +461,75 @@ def run_gn_loop_device(
 
         status = RUNNING
         t_loop = time.perf_counter()
+        replays = span("loop.replays")
         try:
-            pending = issue()
-            while True:
-                # speculative: the next chunk is issued before this one is
-                # read; a chunk issued on a finished state runs no step
-                nxt = issue()
-                host, done, snap = pending
-                if done is not None:
-                    done.synchronize()  # ONE host sync per chunk
-                    if mesh is not None:
-                        mesh.check()
-                info["reads"] += 1
-                arr = host.double().numpy()
-                recs_h = arr[: nrec * N_COLS].reshape(nrec, N_COLS)
-                status = int(arr[-3])
-                lap = watch.lap()
-                cgs = recs_h[:, CG_COL]
-                steps = [int(c) for c in cgs[cgs >= 0]]
-                info["steps"] += len(steps)
-                if cg_iterations is not None:
-                    cg_iterations.extend(steps)
-                n_events = int(np.sum(recs_h[:, 0] != REC_UNUSED))
-                n_accepts = int(np.sum(recs_h[:, 0] == REC_ACCEPT))
-                per = lap / max(n_events, 1)
-                for kind, cnt, delta, lam, ctol in recs_h[:, :CG_COL]:
-                    if kind == REC_UNUSED:
+            with replays:
+                pending = issue()
+                while True:
+                    # speculative: the next chunk is issued before this one is
+                    # read; a chunk issued on a finished state runs no step
+                    nxt = issue()
+                    host, done, snap = pending
+                    if done is not None:
+                        done.synchronize()  # ONE host sync per chunk
+                        if mesh is not None:
+                            mesh.check()
+                    info["reads"] += 1
+                    arr = host.double().numpy()
+                    recs_h = arr[: nrec * N_COLS].reshape(nrec, N_COLS)
+                    status = int(arr[-3])
+                    lap = watch.lap()
+                    cgs = recs_h[:, CG_COL]
+                    steps = [int(c) for c in cgs[cgs >= 0]]
+                    info["steps"] += len(steps)
+                    if cg_iterations is not None:
+                        cg_iterations.extend(steps)
+                    n_events = int(np.sum(recs_h[:, 0] != REC_UNUSED))
+                    n_accepts = int(np.sum(recs_h[:, 0] == REC_ACCEPT))
+                    per = lap / max(n_events, 1)
+                    for kind, cnt, delta, lam, ctol in recs_h[:, :CG_COL]:
+                        if kind == REC_UNUSED:
+                            break
+                        if kind == REC_ACCEPT:
+                            delta_history.append(float(delta))
+                        if progress_fn is not None:
+                            progress_fn(IterationRecord(
+                                int(cnt), float(delta), per, float(ctol),
+                                accepted=kind == REC_ACCEPT, damping=float(lam),
+                            ))
+                    count = int(arr[-2])
+                    if status == DIVERGED:
+                        bad = float(recs_h[n_events - 1][2]) if n_events else float(arr[-1])
+                        raise SolverDivergence(count + 1, bad, delta_history)
+                    if checkpoint_path is not None and writes_checkpoints and n_accepts and (
+                        count // checkpoint_every > (count - n_accepts) // checkpoint_every
+                    ):
+                        ckpt_mod.save_checkpoint(
+                            checkpoint_path,
+                            ckpt_mod.SolverCheckpoint(
+                                x=snap.cpu().numpy(), iteration=count,
+                                delta_history=delta_history,
+                                meta={k: str(v) for k, v in
+                                      ckpt_mod.problem_fingerprint(problem).items()},
+                            ),
+                        )
+                    if status != RUNNING:
                         break
-                    if kind == REC_ACCEPT:
-                        delta_history.append(float(delta))
-                    if progress_fn is not None:
-                        progress_fn(IterationRecord(
-                            int(cnt), float(delta), per, float(ctol),
-                            accepted=kind == REC_ACCEPT, damping=float(lam),
-                        ))
-                count = int(arr[-2])
-                if status == DIVERGED:
-                    bad = float(recs_h[n_events - 1][2]) if n_events else float(arr[-1])
-                    raise SolverDivergence(count + 1, bad, delta_history)
-                if checkpoint_path is not None and writes_checkpoints and n_accepts and (
-                    count // checkpoint_every > (count - n_accepts) // checkpoint_every
-                ):
-                    ckpt_mod.save_checkpoint(
-                        checkpoint_path,
-                        ckpt_mod.SolverCheckpoint(
-                            x=snap.cpu().numpy(), iteration=count,
-                            delta_history=delta_history,
-                            meta={k: str(v) for k, v in
-                                  ckpt_mod.problem_fingerprint(problem).items()},
-                        ),
-                    )
-                if status != RUNNING:
-                    break
-                pending = nxt
+                    pending = nxt
         finally:
-            if dev.type == "cuda":
-                # the speculative chunk is still queued: let it finish before
-                # the graph and its pools go
-                torch.cuda.current_stream(dev).synchronize()
-            info["loop_s"] = time.perf_counter() - t_loop
-            if graph is not None:
-                info["replayed"] = graph.collect()
-            loop_counts.clear()
-            loop_counts.update(info)
+            with span("loop.teardown"):
+                if dev.type == "cuda":
+                    # the speculative chunk is still queued: let it finish before
+                    # the graph and its pools go
+                    torch.cuda.current_stream(dev).synchronize()
+                info["loop_s"] = time.perf_counter() - t_loop
+                if graph is not None:
+                    info["replayed"] = graph.collect()
+                # the graph and its pool go here, inside the teardown's span
+                graph = step_once = None
+                collect_stamps(dev, replays.id)
+                loop_counts.clear()
+                loop_counts.update(info)
 
     elapsed = time.perf_counter() - t0
     converged = status in (CONV_THRESHOLD, CONV_PLATEAU)
@@ -526,31 +547,32 @@ def _capture(gated, body, st, recs, ri, si, dev, counters, info, bodies):
     Returns the StepGraph."""
     t0 = time.perf_counter()
     with capture_lock, torch.cuda.device(dev):
-        before = {k: _copy(d) for k, d in counters.items()}
-        saved = {k: v.clone() for k, v in st.items()}
-        saved_recs = (recs.clone(), ri.clone(), si.clone())
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for k, v in saved.items():
-            st[k].copy_(v)
-        for t, v in zip((recs, ri, si), saved_recs):
-            t.copy_(v)
-        torch.cuda.synchronize(dev)
-        mark_stage("warm-up")
-        warmed = {k: _copy(d) for k, d in counters.items()}
-        graph = StepGraph(bodies)
-        # the capture empties the allocator's cache first: measure from there
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph.capture(gated)
-        info["warmup"] = {k: _diff(warmed[k], before[k]) for k in counters}
-        info["per_body"] = {k: _diff(d, warmed[k]) for k, d in counters.items()}
-        for k, d in counters.items():
-            _restore(d, warmed[k])
-        info["capture_reserved_bytes"] = torch.cuda.memory_reserved(dev) - reserved
-    info["capture_s"] = time.perf_counter() - t0
-    mark_stage("capture")
+        with span("loop.warmup", stage="warm-up"):
+            before = {k: _copy(d) for k, d in counters.items()}
+            saved = {k: v.clone() for k, v in st.items()}
+            saved_recs = (recs.clone(), ri.clone(), si.clone())
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            for k, v in saved.items():
+                st[k].copy_(v)
+            for t, v in zip((recs, ri, si), saved_recs):
+                t.copy_(v)
+            torch.cuda.synchronize(dev)
+        with span("loop.capture", stage="capture"):
+            warmed = {k: _copy(d) for k, d in counters.items()}
+            graph = StepGraph(bodies)
+            # the capture empties the allocator's cache first: measure from there
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph.capture(gated)
+            info["warmup"] = {k: _diff(warmed[k], before[k]) for k in counters}
+            info["per_body"] = {k: _diff(d, warmed[k]) for k, d in counters.items()}
+            for k, d in counters.items():
+                _restore(d, warmed[k])
+            info["capture_reserved_bytes"] = torch.cuda.memory_reserved(dev) - reserved
+        # the loop.warmup and loop.capture spans, end to end
+        info["capture_s"] = time.perf_counter() - t0
     return graph

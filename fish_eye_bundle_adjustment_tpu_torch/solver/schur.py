@@ -95,11 +95,14 @@ from fish_eye_bundle_adjustment_tpu_torch.utils import checkpoint as ckpt_mod
 from fish_eye_bundle_adjustment_tpu_torch.utils.cudagraph import run_if
 from fish_eye_bundle_adjustment_tpu_torch.utils.layout import ParamLayout
 from fish_eye_bundle_adjustment_tpu_torch.utils.observe import (
+    ADJUST,
     IterationRecord,
     SolverDivergence,
     Stopwatch,
     check_divergence,
+    device_span,
     mark_stage,
+    span,
 )
 
 # rows of the operator's IOP outputs (out_iop, di): one camera's IOPs fit
@@ -809,6 +812,10 @@ class SchurFactors:
     # -- Schur pieces ----------------------------------------------------
     def schur_matvec(self, vc):
         """S vc = C'WC vc - C'WP Hpp^-1 P'WC vc."""
+        with device_span("schur_matvec", vc):
+            return self._schur_matvec(vc)
+
+    def _schur_matvec(self, vc):
         k = self.k
         if self.fused:
             vpose, vi = self._fused_v(vc)
@@ -1127,12 +1134,13 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
         go = flag(live)
 
         def block():
-            out = tuple(live)
-            for _ in range(_CG_UNROLL):
-                out = masked_iter(out)
-            for dst, src in zip(live, out):
-                _tmap(lambda d, v: d.copy_(v), dst, src)
-            go.copy_(flag(out))
+            with device_span("pcg.block", go):
+                out = tuple(live)
+                for _ in range(_CG_UNROLL):
+                    out = masked_iter(out)
+                for dst, src in zip(live, out):
+                    _tmap(lambda d, v: d.copy_(v), dst, src)
+                go.copy_(flag(out))
 
         for _ in range(-(-maxiter // _CG_UNROLL)):
             run_if(go, block)
@@ -1143,8 +1151,9 @@ def _pcg(matvec, b, precond, project, tol, maxiter, dot=None):
             return bool(flag(state))
 
         while go_on(state):
-            for _ in range(_CG_UNROLL):
-                state = masked_iter(state)
+            with device_span("pcg.block", bnorm2):
+                for _ in range(_CG_UNROLL):
+                    state = masked_iter(state)
     i, x, r = state[:3]
     return x, i, torch.sqrt(dot(r, r) / bnorm2)
 
@@ -1201,7 +1210,8 @@ def schur_step_fn(kernel: SchurKernel, layout: ParamLayout, use_ic: bool,
         scale = layout.scale_like(x)
         q = x * scale
         lam_t = scalar(lam) if adaptive else None
-        fac = kernel.linearize(q, obs, lam=lam_t)
+        with device_span("linearize", q):
+            fac = kernel.linearize(q, obs, lam=lam_t)
         wx, wy = obs.W[:, 0], obs.W[:, 1]
         zero = torch.zeros_like(fac.rx)
         rxm = torch.where(wx > 0, fac.rx, zero)
@@ -1546,7 +1556,16 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
     9-tuple, the CG iterations of every step as ints).  `kw` are the
     loops' common keywords (x0, progress_fn, checkpoint_path,
     checkpoint_every, device); `n_pad` and `mesh` (the Mesh of a
-    distributed step) go to the device loop."""
+    distributed step) go to the device loop.  One call is one adjustment:
+    the span ADJUST of a trace (utils/observe), whose end marks the stage
+    "loop"."""
+    with span(ADJUST, stage="loop"):
+        return _drive(raw_step, obs, layout, problem, opts, keep_history, pairs,
+                      writes_checkpoints, n_pad, mesh, **kw)
+
+
+def _drive(raw_step, obs, layout, problem, opts, keep_history, pairs, writes_checkpoints,
+           n_pad, mesh, **kw):
     if use_device_loop(opts, keep_history, pairs, mesh):
         from fish_eye_bundle_adjustment_tpu_torch.solver.device_loop import run_gn_loop_device
 
@@ -1555,7 +1574,6 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
             raw_step, obs, layout, problem, opts, chunk=opts.device_chunk, n_pad=n_pad,
             writes_checkpoints=writes_checkpoints, cg_iterations=cg_iterations,
             mesh=mesh, **kw)
-        mark_stage("loop")
         return out, cg_iterations
     counted = []  # 0-d device counts, read once at the end
 
@@ -1566,7 +1584,6 @@ def drive(raw_step, obs, layout, problem, opts, keep_history, pairs=None,
 
     out = run_gn_loop(step, obs, layout, problem, opts, keep_history=keep_history,
                       writes_checkpoints=writes_checkpoints, **kw)
-    mark_stage("loop")
     return out, torch.stack(counted).tolist() if counted else []
 
 

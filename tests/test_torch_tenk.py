@@ -9,12 +9,9 @@ the card-only keys null or empty.
 import json
 from pathlib import Path
 
-import pytest
-
 import bench_torch_posegraph
 import bench_torch_stds
 import bench_torch_tenk
-from fish_eye_bundle_adjustment_tpu_torch.utils import observe
 
 from _torch_blocks import one_torch_thread  # noqa: F401 (autouse)
 
@@ -79,20 +76,3 @@ def test_stds_twin_prints_the_jax_keys(capsys):
         assert b["cg_solves"] == {"subspace": 32, "deflation": 16, "camera": 1, "point": 1}
         assert "stds point probes" in b["stage_s"] and b["cg_matvecs"] > 0
     assert 0 < got["accuracy_block"]["median_rel_err"] < 1
-
-
-@pytest.mark.parametrize("traced", [False, True])
-def test_profile_trace(tmp_path, traced):
-    """profile_trace: a no-op at log_dir=None; else a Chrome trace of the
-    block's torch ops written under log_dir."""
-    import torch
-
-    log_dir = tmp_path / "trace" if traced else None
-    with observe.profile_trace(log_dir) as prof:
-        torch.ones(64).cumsum(0).sum()
-    if not traced:
-        assert prof is None and not any(tmp_path.iterdir())
-        return
-    (trace,) = log_dir.glob("trace-*.json")
-    events = json.loads(trace.read_text())["traceEvents"]
-    assert any("cumsum" in e.get("name", "") for e in events)
